@@ -9,8 +9,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
   1. device: `nvidia-smi` name and power limit; no CUDA -> exit 1, no result.
   2. build: compile gpu_raytracer_tpu_torch/csrc/*.cu with nvcc (timed),
      while the scenes below are built; the ptxas report (registers, spills,
-     stack frame) and the occupancy API's blocks an SM of each wide
-     traversal kernel.
+     stack frame) and the occupancy API's blocks an SM of each wide and
+     paged traversal kernel.
   scene: the procedural 1920x1080 configuration (cube room, area light,
      three subdivision-6 icospheres, 245,774 triangles, merged tables) and
      the instanced one (441 instances of one subdivision-4 icosphere, room,
@@ -46,11 +46,16 @@ Phases (one line each; any failure raises and the exit code is nonzero):
   3st. the paged-table kernels: resident and page passes, closest and any,
      against their plain versions on captured full 777,600-ray waves of the
      streamed scene (the primary wave, the bounce-1 wave and its shadow
-     wave), timed, with bounds (the page pass's bytes: the distinct page rows
-     its plain version loads); the passes a wave took and the portals a lane
-     enumerated; and the whole
-     paged trace of each wave against the merged wide kernels (K1 primary,
-     K2 closest and any) over the merged tables of the same tree, both timed.
+     wave; the resident pass bit-equal, the page pass's closest hit by the
+     tie-aware bar, any hit exact), timed, with bounds (the page pass's
+     bytes: the distinct page rows its plain version loads) and the warp
+     utilisation of a one-thread-a-ray schedule (plain visits) beside the
+     walk's (its instrumented launch); the passes a wave took and the
+     portals a lane enumerated; and the whole paged trace of each wave
+     against the plain trace (the same bars) and against the merged wide
+     kernels (K1 primary, K2 closest and any) over the merged tables of the
+     same tree, both timed. The scene line gives the page pass's stack: the
+     deepest page walk plus the K - 1 portals seeded beneath it.
   3pr. the probe kernels (the Hopper counterparts of the JAX package's TPU
      probes tools/exp_gang_ablate.py, exp_gang_micro.py, exp_gather.py and
      exp_gather2.py) on the merged scene's tables and its captured full
@@ -455,7 +460,7 @@ def phase_stream_kernels(pt, merged, results: dict) -> None:
     import torch
 
     from gpu_raytracer_tpu_torch import parity
-    from gpu_raytracer_tpu_torch.integrators.pathtracer import DISPATCH
+    from gpu_raytracer_tpu_torch.integrators.pathtracer import DISPATCH, PLAIN
     from gpu_raytracer_tpu_torch.ops import stream_traverse as st
     from gpu_raytracer_tpu_torch.ops import wide_traverse as wt
 
@@ -470,12 +475,16 @@ def phase_stream_kernels(pt, merged, results: dict) -> None:
         errs["resident_" + mode] = max(errs["resident_" + mode], parity.compare_stream_pass(
             res_k, st.resident_plain(any_hit, tables, o, d, tm),
             ("t", "tri", "pid", "pt", "ovf")))
-        # The page pass after pass 0's fold (a first pass finds best = t_max).
+        # The page pass after pass 0's fold (a first pass finds best = t_max):
+        # any hit exact, closest hit by the tie-aware bar.
         t1, tri1, pid, pt_, ovf = res_k
         page_in = (pid, pt_, torch.where(tri1 >= 0, t1, tm), tri1)
-        errs["page_" + mode] = max(errs["page_" + mode], parity.compare_stream_pass(
-            st.page_kernel(any_hit, tables, o, d, tm, *page_in),
-            st.page_plain(any_hit, tables, o, d, tm, *page_in), ("t", "tri")))
+        page_k = st.page_kernel(any_hit, tables, o, d, tm, *page_in)
+        page_p = st.page_plain(any_hit, tables, o, d, tm, *page_in)
+        errs["page_" + mode] = max(errs["page_" + mode], (
+            parity.compare_stream_pass(page_k, page_p, ("t", "tri")) if any_hit
+            else parity.compare_stream_closest(page_k, page_p, (tables, o, d))))
+        page_ties = int((page_k[1] != page_p[1]).sum())
         torch.cuda.synchronize()
         live = tm > 0
         portals = ((pid >= 0).sum(dim=1) + ovf)[live].float()
@@ -503,9 +512,17 @@ def phase_stream_kernels(pt, merged, results: dict) -> None:
             if label.startswith("bounce-1"):
                 results[name] = {"max_abs_err": None, "ms": ms, "plain_ms": plain_ms,
                                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            # Warp utilisation: a one-thread-a-ray schedule's (the plain
+            # version's per-ray visits), the walk's (its instrumented launch).
+            util_old = wt.warp_utilisation(st.last_pops[name])
+            _, stats = st.pass_stats(kind, any_hit, tables, *args)
+            ties = f"; ids differ at {page_ties} exact ties" if kind == "page" and not any_hit \
+                else ""
             say("3st", f"{KERNELS[name][0]} on the {label} wave: parity ok on "
-                       f"{o.shape[0]} rays; {text}; work {work}, {ops} ops; {need} bytes; "
-                       f"bound {b_ms:.4f} ms ({b_by})")
+                       f"{o.shape[0]} rays{ties}; {text}; work {work}, {ops} ops; {need} bytes; "
+                       f"bound {b_ms:.4f} ms ({b_by}); warp utilisation one thread a ray "
+                       f"{util_old:.4f}, walk {wt.kernel_utilisation(stats):.4f}, its "
+                       f"counters {stats}")
         # The whole paged trace against the merged wide kernels (K1 on the
         # primary wave, K2 on the others) over the same tree's merged tables.
         role = "any" if any_hit else ("primary" if label == "primary" else "closest")
@@ -513,6 +530,15 @@ def phase_stream_kernels(pt, merged, results: dict) -> None:
         out6 = fn6(tables, o, d, tm)
         passes = st.last_trace["passes"]
         out12 = getattr(DISPATCH, role)(merged, o, d, tm)
+        # The whole paged trace against the plain one (closest hit by the
+        # tie-aware bar, any hit exact), then against the merged kernels.
+        if any_hit:
+            parity.compare_any(out6, PLAIN.stream_any(tables, o, d, tm))
+        else:
+            (hit_p, residual_p) = PLAIN.stream_closest(tables, o, d, tm)
+            if not torch.equal(out6[1], residual_p):
+                raise AssertionError("residual lanes differ from the plain trace's")
+            parity.compare_stream_closest(out6[0], hit_p, (tables, o, d))
         if any_hit:
             parity.compare_any(out6, out12)
             match = 1.0
@@ -937,6 +963,7 @@ def build_stream_scene(gpu):
 
     from gpu_raytracer_tpu_torch.bvh import wide as wide_mod
     from gpu_raytracer_tpu_torch.ops import buffers as tb
+    from gpu_raytracer_tpu_torch.ops import stream_traverse as st
     from gpu_raytracer_tpu_torch.ops import wide_traverse as wt
     from gpu_raytracer_tpu_torch.scenes import procedural_scene
 
@@ -977,6 +1004,10 @@ def build_stream_scene(gpu):
                             torch.as_tensor(rows, device=dev), tb._max_stack_of(nodes, rows))
     t_merged = time.perf_counter() - t0
     merged_bytes = (nodes.shape[0] + rows.shape[0]) * 512
+    # The page pass's stack: its deepest page walk with the up to K - 1
+    # portals seeded beneath it (stream_traverse.make_stream_tables).
+    page_stack = tb.stream_page_stack({k: getattr(stream, k).cpu().numpy() for k in (
+        "pages", "portal_page", "portal_root")})
     shared = wide_mod.estimate_table_bytes(
         sum(md.bvh.num_nodes for md in scene.mesh_datas),
         host["tris"]["shade_rows"].shape[0], len(scene.instances))
@@ -986,7 +1017,9 @@ def build_stream_scene(gpu):
                  f"and the page packing {spent['pack_wide_stream']:.2f} s; paged tables: "
                  f"resident {stream.resident.shape[0]} rows, {stream.pages.shape[0]} pages x "
                  f"{stream.page_rows * 512} bytes, {stream.portal_page.shape[0]} portals, "
-                 f"stack bound {stream.max_stack}; gates: merged tables {merged_bytes} bytes "
+                 f"stack bound {stream.max_stack}, page walk {page_stack} + "
+                 f"{st.K_PORTALS - 1} seeded portals = {page_stack + st.K_PORTALS - 1} of the "
+                 f"kernel's {wt.STACK_CAPACITY}; gates: merged tables {merged_bytes} bytes "
                  f"> {tb.VMEM_LIMIT - tb.VMEM_MARGIN} (VMEM_LIMIT - margin), two-level "
                  f"estimate {shared} > {2 * tb.VMEM_LIMIT}; route {pt.route()}; the merged "
                  f"yardstick ({nodes.shape[0]} nodes + {rows.shape[0]} leaf rows, stack "
@@ -1028,6 +1061,7 @@ def main() -> int:
     from gpu_raytracer_tpu_torch.integrators.pathtracer import Pathtracer
     from gpu_raytracer_tpu_torch.ops import binary_traverse as bt
     from gpu_raytracer_tpu_torch.ops import fused_shade as fs
+    from gpu_raytracer_tpu_torch.ops import stream_traverse as st
     from gpu_raytracer_tpu_torch.ops import wide_traverse as wt
     from gpu_raytracer_tpu_torch.scenes import (
         cornell_scene,
@@ -1091,14 +1125,15 @@ def main() -> int:
         say("2", f"ptxas: {ln}")
     for name, lines in _native.ptxas_report(info["log"], "wt_").items():
         say("2", f"ptxas {name}: {'; '.join(lines)}")
-    for two_level in (False, True):
-        for mode, role in enumerate(wt.ROLES):
-            k = wt.kernel_info(mode, two_level)
-            say("2", f"{KERNELS[role + ('_tl' if two_level else '')][0]}: {k['registers']} "
-                     f"registers, {k['local_bytes']} bytes stack frame, {k['shared_bytes']} "
-                     f"bytes shared a block of {k['threads']}; occupancy API: "
-                     f"{k['blocks_per_sm']} blocks = {k['blocks_per_sm'] * k['threads'] // 32} "
-                     f"warps an SM, {k['sms']} SMs")
+    infos = [(role + ("_tl" if two_level else ""), wt.kernel_info(mode, two_level))
+             for two_level in (False, True) for mode, role in enumerate(wt.ROLES)]
+    infos += [(f"{kind}_{mode}", st.kernel_info(kind, mode == "any"))
+              for kind in ("resident", "page") for mode in ("closest", "any")]
+    for name, k in infos:
+        say("2", f"{KERNELS[name][0]}: {k['registers']} registers, {k['local_bytes']} bytes "
+                 f"stack frame, {k['shared_bytes']} bytes shared a block of {k['threads']}; "
+                 f"occupancy API: {k['blocks_per_sm']} blocks = "
+                 f"{k['blocks_per_sm'] * k['threads'] // 32} warps an SM, {k['sms']} SMs")
 
     # ---- 3. per-kernel parity ----
     results: dict = {}

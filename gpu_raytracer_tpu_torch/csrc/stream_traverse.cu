@@ -1,241 +1,116 @@
-// Traversal of paged wide-BVH tables for NVIDIA Hopper (sm_90a), one thread
-// per ray, in two kernels.
+// Traversal of paged wide-BVH tables for NVIDIA Hopper (sm_90a): the two
+// passes of the streamed-tables path as instantiations of the persistent-warp
+// walk of wide_walk.cuh.
 //
 // Replaces the two TPU kernels of the JAX package's streamed-tables path:
-//   gpu_raytracer_tpu/ops/pallas_stream.py  `_resident_kernel`  -> st_resident
-//   gpu_raytracer_tpu/ops/pallas_stream.py  `_page_kernel`      -> st_page
+//   gpu_raytracer_tpu/ops/pallas_stream.py  `_resident_kernel`
+//       -> wt_walk_kernel<MODE, WL_RESIDENT>  (st_resident)
+//   gpu_raytracer_tpu/ops/pallas_stream.py  `_page_kernel`
+//       -> wt_walk_kernel<MODE, WL_PAGE>      (st_page)
 // over the tables of bvh/stream.py: a resident table (Rr, 128) f32 and pages
 // (G, page_rows, 128) f32, each a unified local index space (row v >= 0 a
 // wide node, ref <= -2 a leaf row -(ref+2), -1 empty); resident refs
 // <= -(2 + PORTAL_BASE) are portals to the subtree rooted at row
 // portal_root[pid] of page portal_page[pid].
 //
-// st_resident traverses the resident rows like wt_trace_kernel (the same
-// slab test, stable near-first child order, pop-time cull and leaf test, from
-// wide_common.cuh). A portal child that the ray enters before its cull t is
-// not pushed: it gets the ray's next enumeration index (node visit order,
-// then child slot order), and if the index lies in the pass's window
-// [skip, skip + K) its (portal id, entry t) goes to slot index - skip of the
-// ray's list; past the window it only counts in ovf. It also writes the best
-// resident hit (any-hit: t 0 and tri 0 where occluded).
+// The resident pass walks the resident rows and records each ray's portals
+// in its enumeration order (node visit order, then child slot order), the
+// window [skip, skip + K) of them into slot-major (K, R) lists, the rest
+// counted in ovf; it also writes the best resident hit (any hit: t 0 and tri
+// 0 where occluded). Its leaves are tested inline, in the lane's own order,
+// so the enumeration is a function of the ray alone and the host
+// (ops/stream_traverse.py), which reruns the pass for the lanes whose list
+// overflowed with the window advanced by K, loses no portal.
 //
-// st_page sorts a ray's recorded portals by entry t (stable insertion sort of
-// at most K in registers) and, nearest first, while the entry lies before the
-// running best (closest) or the ray is not occluded (any), traverses the
-// portal's subtree inside its page from the root row, folding hits into the
-// running best it reads and writes.
-//
-// The host (ops/stream_traverse.py) reruns st_resident for the lanes whose
-// list overflowed, with their original t_max and the window advanced by K:
-// the enumeration is per ray, so a replay is deterministic and the pass
-// loop loses no portal.
+// The page pass seeds each lane's stack with its recorded portals, sorted
+// nearest first, as global rows of the flat page array, and walks them as
+// one traversal with postponed leaves and the warp's cooperative leaf phase,
+// folding hits into the running best it reads and writes.
 //
 // What the TPU needed and Hopper does not (ROADMAP C18): gangs of 128 rays
 // sharing a stack, popularity-sorted page rounds with M_SUB portals a gang,
-// the 2 MiB page copy into VMEM and the 512-tile watchdog launch split. One
-// thread here reads any page row from device memory through the 50 MB L2.
+// the 2 MiB page copy into VMEM and the 512-tile watchdog launch split. A
+// lane here reads any page row from device memory through the 50 MB L2.
 //
-// What bounds it on the card: as the wide kernel, dependent divergent
-// 512-byte row loads (latency), now from tables of hundreds of MB that do
-// not stay in L2, and warp divergence between rays that visit different
-// portals and pages. The simple design keeps the per-ray nearest-first order
-// and the cull against the running best (fewest rows a ray loads); sorting
-// rays by portal, page-sized shared-memory staging and persistent threads are
-// left to later work.
+// What bounds it on the card: dependent divergent 512-byte row loads
+// (latency), from a page array of hundreds of MB that does not stay in L2:
+// more useful lanes in flight is the lever.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "wide_common.cuh"
-
-#define ST_STACK WT_STACK      // wide_traverse.STACK_CAPACITY
-#define ST_K 16                // stream_traverse.K_PORTALS
-#define ST_PORTAL_BASE (1 << 22)  // bvh/stream.PORTAL_BASE
-
-// Traversal of one unified table from `root` (pushed with key `key0`) for
-// one ray; folds into best_t / best_tri (any-hit: sets tri 0, t 0 on the
-// first hit). With RECORD, portal children are recorded (see above) and not
-// pushed.
-template <bool ANY, bool RECORD>
-__device__ __forceinline__ void st_walk(const float* __restrict__ table, int root, float key0,
-                                        float ox, float oy, float oz, float dx, float dy,
-                                        float dz, float ix, float iy, float iz, float tm,
-                                        float& best_t, int& best_tri, int skip, int& cnt,
-                                        int& ovf, int* pid_row, float* pt_row) {
-  int st_ref[ST_STACK];
-  float st_t[ST_STACK];
-  st_ref[0] = root;
-  st_t[0] = key0;
-  int sp = 1;
-  while (sp > 0) {
-    --sp;
-    const int v = st_ref[sp];
-    const float et = st_t[sp];
-    if (!ANY && et >= best_t) continue;  // cannot hold a closer hit
-    if (v >= 0) {
-      float b[56];
-      wt_load_node(table + (size_t)v * WT_ROW, b);
-      float key[8];
-      int ref[8];
-      wt_child_keys(b, ox, oy, oz, ix, iy, iz, ANY ? tm : best_t, key, ref);
-      if (RECORD) {
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          if (key[c] < INFINITY && ref[c] <= -(2 + ST_PORTAL_BASE)) {
-            const int k = cnt - skip;
-            if (k >= 0 && k < ST_K) {
-              pid_row[k] = -ref[c] - 2 - ST_PORTAL_BASE;
-              pt_row[k] = key[c];
-            } else if (k >= ST_K) {
-              ++ovf;
-            }
-            ++cnt;
-            key[c] = INFINITY;
-          }
-        }
-      }
-      wt_sort8(key, ref);
-      wt_push_sorted<ST_STACK>(key, ref, st_ref, st_t, sp);
-    } else {
-      const float* row = table + (size_t)(-v - 2) * WT_ROW;
-      const int count = (int)__ldg(row);
-      for (int j = 0; j < WT_LEAF_CAP; ++j) {
-        if (j >= count) break;
-        float t, u, w;
-        if (wt_tri_hit(row + 16 + 9 * j, ox, oy, oz, dx, dy, dz, ANY ? tm : best_t, t, u,
-                       w)) {
-          if (ANY) {
-            best_t = 0.0f;
-            best_tri = 0;
-            return;
-          }
-          best_t = t;
-          best_tri = (int)__ldg(row + 1 + j);
-        }
-      }
-    }
-  }
-}
-
-template <bool ANY>
-__global__ void __launch_bounds__(128)
-st_resident_kernel(const float* __restrict__ resident, const float* __restrict__ ray_o,
-                   const float* __restrict__ ray_d, const float* __restrict__ t_max, int R,
-                   int skip, float* __restrict__ t_out, int* __restrict__ tri_out,
-                   int* __restrict__ pid_out, float* __restrict__ pt_out,
-                   int* __restrict__ ovf_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R) return;
-  int* pid_row = pid_out + (size_t)i * ST_K;
-  float* pt_row = pt_out + (size_t)i * ST_K;
-#pragma unroll
-  for (int k = 0; k < ST_K; ++k) {
-    pid_row[k] = -1;
-    pt_row[k] = INFINITY;
-  }
-  const float ox = ray_o[3 * i + 0], oy = ray_o[3 * i + 1], oz = ray_o[3 * i + 2];
-  const float dx = ray_d[3 * i + 0], dy = ray_d[3 * i + 1], dz = ray_d[3 * i + 2];
-  const float tm = t_max[i];
-  float best_t = tm;
-  int best_tri = -1, cnt = 0, ovf = 0;
-  if (tm > 0.0f)  // t_max <= 0 marks a dead lane
-    st_walk<ANY, true>(resident, 0, 0.0f, ox, oy, oz, dx, dy, dz, wt_inv1(dx), wt_inv1(dy),
-                       wt_inv1(dz), tm, best_t, best_tri, skip, cnt, ovf, pid_row, pt_row);
-  t_out[i] = best_tri >= 0 ? best_t : INFINITY;
-  tri_out[i] = best_tri;
-  ovf_out[i] = ovf;
-}
-
-template <bool ANY>
-__global__ void __launch_bounds__(128)
-st_page_kernel(const float* __restrict__ pages, int page_rows,
-               const int* __restrict__ portal_page, const int* __restrict__ portal_root,
-               const float* __restrict__ ray_o, const float* __restrict__ ray_d,
-               const float* __restrict__ t_max, int R, const int* __restrict__ pid,
-               const float* __restrict__ pt, float* __restrict__ best_t_io,
-               int* __restrict__ best_tri_io) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R) return;
-  float best_t = best_t_io[i];
-  int best_tri = best_tri_io[i];
-  if (ANY && best_tri >= 0) return;  // already occluded
-  // The recorded portals, nearest entry first (stable: a strict compare
-  // keeps enumeration order on ties, as torch.sort(stable=True)).
-  float key[ST_K];
-  int id[ST_K];
-  int n = 0;
-  for (int k = 0; k < ST_K; ++k) {
-    const int p = pid[(size_t)i * ST_K + k];
-    if (p < 0) break;  // lists fill from slot 0
-    const float e = pt[(size_t)i * ST_K + k];
-    int j = n++;
-    while (j > 0 && key[j - 1] > e) {
-      key[j] = key[j - 1];
-      id[j] = id[j - 1];
-      --j;
-    }
-    key[j] = e;
-    id[j] = p;
-  }
-  if (n == 0) return;
-  const float ox = ray_o[3 * i + 0], oy = ray_o[3 * i + 1], oz = ray_o[3 * i + 2];
-  const float dx = ray_d[3 * i + 0], dy = ray_d[3 * i + 1], dz = ray_d[3 * i + 2];
-  const float ix = wt_inv1(dx), iy = wt_inv1(dy), iz = wt_inv1(dz);
-  const float tm = t_max[i];
-  int cnt = 0, ovf = 0;
-  for (int k = 0; k < n; ++k) {
-    if (ANY ? best_tri >= 0 : !(key[k] < best_t)) break;
-    const float* page = pages + (size_t)portal_page[id[k]] * page_rows * WT_ROW;
-    st_walk<ANY, false>(page, portal_root[id[k]], key[k], ox, oy, oz, dx, dy, dz, ix, iy,
-                        iz, tm, best_t, best_tri, 0, cnt, ovf, nullptr, nullptr);
-  }
-  best_t_io[i] = best_t;
-  best_tri_io[i] = best_tri;
-}
+#include "wide_walk.cuh"
 
 // Layout constants, checked against the Python side at load
 // (ops/_native.load).
-extern "C" int st_window(void) { return ST_K; }
-extern "C" int st_stack_capacity(void) { return ST_STACK; }
-extern "C" int st_portal_base(void) { return ST_PORTAL_BASE; }
+extern "C" int st_window(void) { return WT_K; }
+extern "C" int st_stack_capacity(void) { return WT_STACK; }
+extern "C" int st_portal_base(void) { return WT_PORTAL_BASE; }
+extern "C" int st_root_bits(void) { return WT_ROOT_BITS; }
 
-// Resident pass. Returns the cudaError_t of the launch (0 on success).
-extern "C" int st_resident(int any_hit, const float* resident, const float* ray_o, const float* ray_d, const float* t_max,
-                           int R, int skip, float* t_out, int* tri_out, int* pid_out,
-                           float* pt_out, int* ovf_out, void* stream) {
+// Resident pass over R rays: t_out, tri_out, ovf_out (R,), pid_out,
+// pt_out (K, R) slot-major. `next_ray` is the walk's ray counter (one int32,
+// zeroed here on the stream); with `stats` (WP_NUM_STATS uint64, zeroed by
+// the caller) the instrumented instantiation adds its counters there.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int st_resident(int any_hit, const float* resident, const float* ray_o,
+                           const float* ray_d, const float* t_max, int R, int skip,
+                           int* next_ray, unsigned long long* stats, float* t_out,
+                           int* tri_out, int* pid_out, float* pt_out, int* ovf_out,
+                           void* stream) {
   if (R <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (R + threads - 1) / threads;
   cudaStream_t s = (cudaStream_t)stream;
-  if (any_hit)
-    st_resident_kernel<true><<<blocks, threads, 0, s>>>(resident, ray_o, ray_d, t_max, R,
-                                                        skip, t_out, tri_out, pid_out,
-                                                        pt_out, ovf_out);
-  else
-    st_resident_kernel<false><<<blocks, threads, 0, s>>>(resident, ray_o, ray_d, t_max, R,
-                                                         skip, t_out, tri_out, pid_out,
-                                                         pt_out, ovf_out);
-  return (int)cudaGetLastError();
+  WtPaged pg = {};
+  pg.skip = skip;
+  pg.pid = pid_out;
+  pg.pt = pt_out;
+  pg.ovf = ovf_out;
+#define ST_ARGS s, resident, resident, 0, ray_o, ray_d, t_max, R, next_ray, t_out, tri_out, \
+                nullptr, nullptr, stats, pg
+  switch ((any_hit ? 2 : 0) + (stats ? 1 : 0)) {
+    case 0: return wt_walk_launch<WT_CLOSEST, WL_RESIDENT, false>(ST_ARGS);
+    case 1: return wt_walk_launch<WT_CLOSEST, WL_RESIDENT, true>(ST_ARGS);
+    case 2: return wt_walk_launch<WT_ANY, WL_RESIDENT, false>(ST_ARGS);
+    default: return wt_walk_launch<WT_ANY, WL_RESIDENT, true>(ST_ARGS);
+  }
+#undef ST_ARGS
 }
 
-// Page pass over the recorded portals; best_t / best_tri are read and
-// written. Returns the cudaError_t of the launch (0 on success).
+// Page pass over the recorded portals (pid, pt (K, R) slot-major); best_t /
+// best_tri (R,) are read and written in place. Counter and stats as
+// st_resident. Returns the cudaError_t of the launch (0 on success).
 extern "C" int st_page(int any_hit, const float* pages, int page_rows,
-                       const int* portal_page, const int* portal_root, const float* ray_o, const float* ray_d, const float* t_max, int R,
-                       const int* pid, const float* pt, float* best_t, int* best_tri,
-                       void* stream) {
+                       const int* portal_page, const int* portal_root, const float* ray_o,
+                       const float* ray_d, const float* t_max, int R, const int* pid,
+                       const float* pt, int* next_ray, unsigned long long* stats,
+                       float* best_t, int* best_tri, void* stream) {
   if (R <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (R + threads - 1) / threads;
   cudaStream_t s = (cudaStream_t)stream;
-  if (any_hit)
-    st_page_kernel<true><<<blocks, threads, 0, s>>>(pages, page_rows, portal_page,
-                                                    portal_root, ray_o, ray_d, t_max, R, pid,
-                                                    pt, best_t, best_tri);
-  else
-    st_page_kernel<false><<<blocks, threads, 0, s>>>(pages, page_rows, portal_page,
-                                                     portal_root, ray_o, ray_d, t_max, R,
-                                                     pid, pt, best_t, best_tri);
-  return (int)cudaGetLastError();
+  WtPaged pg = {};
+  pg.page_rows = page_rows;
+  pg.portal_page = portal_page;
+  pg.portal_root = portal_root;
+  pg.pid = const_cast<int*>(pid);  // read only in the page pass
+  pg.pt = const_cast<float*>(pt);
+#define ST_ARGS s, pages, pages, 0, ray_o, ray_d, t_max, R, next_ray, best_t, best_tri, \
+                nullptr, nullptr, stats, pg
+  switch ((any_hit ? 2 : 0) + (stats ? 1 : 0)) {
+    case 0: return wt_walk_launch<WT_CLOSEST, WL_PAGE, false>(ST_ARGS);
+    case 1: return wt_walk_launch<WT_CLOSEST, WL_PAGE, true>(ST_ARGS);
+    case 2: return wt_walk_launch<WT_ANY, WL_PAGE, false>(ST_ARGS);
+    default: return wt_walk_launch<WT_ANY, WL_PAGE, true>(ST_ARGS);
+  }
+#undef ST_ARGS
+}
+
+// What the compiler and the occupancy API report for a pass's kernel (the
+// uninstrumented one; page 0 resident, 1 page): wt_info_of's six numbers.
+extern "C" int st_kernel_info(int page, int any_hit, int* out) {
+  switch ((page ? 2 : 0) + (any_hit ? 1 : 0)) {
+    case 0: return wt_info_of(wt_walk_entry<WT_CLOSEST, WL_RESIDENT, false>(), WP_THREADS, out);
+    case 1: return wt_info_of(wt_walk_entry<WT_ANY, WL_RESIDENT, false>(), WP_THREADS, out);
+    case 2: return wt_info_of(wt_walk_entry<WT_CLOSEST, WL_PAGE, false>(), WP_THREADS, out);
+    default: return wt_info_of(wt_walk_entry<WT_ANY, WL_PAGE, false>(), WP_THREADS, out);
+  }
 }

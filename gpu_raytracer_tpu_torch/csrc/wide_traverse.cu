@@ -34,59 +34,17 @@
 // times or sit in different phases (node vs leaf). The primary kernel keeps
 // the simple design: one thread a ray, the stack in local memory.
 //
-// wt_walk_kernel (bounce and shadow waves, CLOSEST and ANY) answers both
-// (each step below was timed as it went in; PERF.md has the numbers):
-//  1. Persistent warps that fetch rays. The grid is the SM count times the
-//     blocks an SM holds (occupancy API). A warp takes the next rays for
-//     its empty lanes from a global counter, one atomicAdd a fetch, when
-//     fewer than WP_FETCH_MIN of its lanes still traverse (Aila and Laine's
-//     dynamic fetch). A dead ray (t_max <= 0) gets its miss written at the
-//     fetch and never takes a lane. The wrapper's counter is zeroed on the
-//     stream before each launch; the kernel allocates nothing.
-//  2. The near child in registers: after the slab test and the stable sort
-//     (wt_sort8, whose order the plain version follows) the nearest hit
-//     child is the next item; only the others are pushed, far to near. A
-//     node without a hit child pops.
-//  3. The stack: one per lane in local memory (L1), WT_STACK entries, each
-//     the ref and key packed into 64 bits: one store, one load. (Its top 8
-//     entries in a shared-memory ring did not pay.)
-//  4. Registers: __launch_bounds__(WP_THREADS, WP_MIN_BLOCKS) for 32
-//     resident warps an SM, the child boxes streamed as float4 triples
-//     (two children each) into the slab test, the world ray re-read from
-//     the ray arrays at an instance row or RESTORE rather than kept.
-//  5. Postponed leaves (the TPU kernel's node / triangle phases, QTRIG, and
-//     the reference's triangle postponing). A step of the node phase is one
-//     interior node a lane; what follows it up to the next interior node is
-//     taken in the same step (`advance`): RESTORE, instance rows (the
-//     leading `inst_rows` leaf rows of two-level tables, known by their id,
-//     transform the ray at once) and a leaf row, which is parked. A lane
-//     holding a parked leaf waits at its next leaf row. The warp turns to
-//     its leaves when WP_LEAF_MIN lanes hold one, or fewer than
-//     WP_STEP_MIN lanes could take a node step. Two-level, a parked leaf
-//     keeps the instance row of its space, so its lane goes on through
-//     RESTORE and instance rows.
-//  6. A cooperative leaf phase: the parked leaves' triangles are laid end
-//     to end (a scan of their counts) and tested 32 at a time, one a lane,
-//     against the owner's ray and best hit of the round (shuffled from the
-//     owner); a segmented minimum of (t, slot) hands each owner what its
-//     own loop over its slots in order, strict <, would keep. A lane's loop
-//     over its own leaf ran a warp for the longest leaf, ~31% of its lanes
-//     busy.
-// Any hit ends a lane at its first hit; the lane then fetches again.
+// wt_walk_kernel (bounce and shadow waves, CLOSEST and ANY): the
+// persistent-warp walk of wide_walk.cuh (ray fetch, the near child in
+// registers, postponed leaves tested by the whole warp), instantiated here
+// for merged and two-level tables.
 //
 // Semantics against the plain version (ops/wide_traverse.trace_plain): only
 // the order of a ray's visits changes, so the closest t is the minimum over
 // the same triangle tests (bit-equal), any hit is equal, and tri / inst may
 // differ only at an exact tie in t.
 //
-// Two-level invariants: RESTORE is pushed with the key -inf, so the pop-time
-// cull never drops it (a dropped RESTORE would leave the ray in object space
-// for the rest of the TLAS); the BLAS root keeps the instance's entry key.
-// The transformed direction is not normalised: the affine inverse keeps the
-// ray parameter, so t, the slab keys and best_t compare across spaces. The
-// packer's stack bound counts RESTORE and the root (a bound on this kernel's
-// depth too, which pushes one entry fewer a node) and is checked against
-// WT_STACK before any launch (wide_traverse.make_tables).
+// Two-level invariants: wide_walk.cuh.
 //
 // Float semantics follow the TPU kernels (wide_common.cuh, whose slab test,
 // child sort and triangle test stream_traverse.cu shares); the instance
@@ -97,11 +55,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "wide_common.cuh"
-
-#define WT_RESTORE (-1)  // stack entry: back to the world-space ray
-
-enum { WT_PRIMARY = 0, WT_CLOSEST = 1, WT_ANY = 2 };
+#include "wide_walk.cuh"
 
 // ---------------------------------------------------------------------------
 // Primary wave (K1): one thread a ray, the stack in local memory.
@@ -212,314 +166,6 @@ wt_primary_kernel(const float* __restrict__ nodes, const float* __restrict__ row
   v_out[i] = best_v;
 }
 
-// ---------------------------------------------------------------------------
-// Bounce and shadow waves (K2, K4): persistent warps.
-// ---------------------------------------------------------------------------
-
-constexpr int WP_THREADS = 128;   // 4 warps a block
-constexpr int WP_MIN_BLOCKS = 8;  // 32 warps an SM: at most 64 registers a thread
-constexpr unsigned WP_FETCH_MIN = 12;  // a warp fetches once fewer lanes still traverse
-constexpr unsigned WP_LEAF_MIN = 12;   // leaf phase once this many lanes hold a parked leaf
-constexpr unsigned WP_STEP_MIN = 4;    // ... or fewer lanes can take a node step
-constexpr int WP_NONE = INT_MIN;  // no item, no parked leaf
-constexpr unsigned WP_FULL = 0xffffffffu;
-
-// Counters of the instrumented instantiation (STATS): per lane, the visits
-// (interior nodes slab-tested, leaf rows tested, instance rows entered,
-// triangles tested); per warp, the steps of the node phase, the leaf phases
-// that tested a leaf and the fetches.
-enum {
-  WP_NODES, WP_LEAVES, WP_INSTANCES, WP_TRIANGLES,
-  WP_NODE_STEPS, WP_LEAF_PHASES, WP_FETCHES, WP_NUM_STATS
-};
-
-template <int MODE, bool TWO_LEVEL, bool STATS>
-__global__ void __launch_bounds__(WP_THREADS, WP_MIN_BLOCKS)
-wt_walk_kernel(const float* __restrict__ nodes, const float* __restrict__ rows,
-               int inst_rows, const float* __restrict__ ray_o,
-               const float* __restrict__ ray_d, const float* __restrict__ t_max, int R,
-               int* __restrict__ next_ray, float* __restrict__ t_out,
-               int* __restrict__ tri_out, int* __restrict__ inst_out,
-               uint8_t* __restrict__ occ_out, unsigned long long* __restrict__ stats) {
-  unsigned long long stack[WT_STACK];  // ref << 32 | key bits
-  const int lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
-
-  int ray = -1;  // the lane's ray, -1 when empty
-  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
-  float ix = 0.0f, iy = 0.0f, iz = 0.0f;
-  float tm = 0.0f, best_t = 0.0f;
-  int best_tri = -1;  // ANY: >= 0 once occluded
-  int best_inst = -1;
-  // Two-level: the instance row whose space the ray is in (-1: world), and
-  // that of the parked leaf, which keeps its space while the lane goes on
-  // through RESTORE and instance rows.
-  int cur_row = -1, parked_row = -1;
-  int cur = WP_NONE;  // the next node; or a leaf row waiting for the parked one
-  float cur_t = 0.0f;
-  int parked = WP_NONE;  // a parked leaf row
-  int sp = 0;
-  bool exhausted = false;
-  unsigned long long lane_stats[4] = {0, 0, 0, 0};
-  unsigned long long warp_stats[3] = {0, 0, 0};
-
-  auto push = [&](int ref, float key) {
-    if (sp < WT_STACK)  // make_tables rules out a full stack
-      stack[sp++] = ((unsigned long long)(unsigned)ref << 32) | __float_as_uint(key);
-  };
-  // The next entry that may hold a closer hit into cur / cur_t, or WP_NONE.
-  auto pop = [&]() {
-    cur = WP_NONE;
-    while (sp > 0) {
-      const unsigned long long e = stack[--sp];
-      const float key = __uint_as_float((unsigned)e);
-      if (MODE == WT_CLOSEST && key >= best_t) continue;
-      cur = (int)(e >> 32);
-      cur_t = key;
-      return;
-    }
-  };
-  // The lane's ray in the space of instance row `inst_row` (-1: the world
-  // ray), from the ray arrays.
-  auto ray_in = [&](int inst_row, float& px, float& py, float& pz, float& qx, float& qy,
-                    float& qz) {
-    const float wox = __ldg(ray_o + 3 * ray), woy = __ldg(ray_o + 3 * ray + 1),
-                woz = __ldg(ray_o + 3 * ray + 2);
-    const float wdx = __ldg(ray_d + 3 * ray), wdy = __ldg(ray_d + 3 * ray + 1),
-                wdz = __ldg(ray_d + 3 * ray + 2);
-    if (inst_row < 0) {
-      px = wox; py = woy; pz = woz;
-      qx = wdx; qy = wdy; qz = wdz;
-      return;
-    }
-    const float* m = rows + (size_t)inst_row * WT_ROW + 2;
-    float k[12];
-#pragma unroll
-    for (int c = 0; c < 12; ++c) k[c] = __ldg(m + c);
-    px = k[0] * wox + k[1] * woy + k[2] * woz + k[3];
-    py = k[4] * wox + k[5] * woy + k[6] * woz + k[7];
-    pz = k[8] * wox + k[9] * woy + k[10] * woz + k[11];
-    qx = k[0] * wdx + k[1] * wdy + k[2] * wdz;
-    qy = k[4] * wdx + k[5] * wdy + k[6] * wdz;
-    qz = k[8] * wdx + k[9] * wdy + k[10] * wdz;
-  };
-  auto enter = [&](int inst_row) {  // the current ray into that space
-    cur_row = inst_row;
-    ray_in(inst_row, ox, oy, oz, dx, dy, dz);
-    ix = wt_inv1(dx); iy = wt_inv1(dy); iz = wt_inv1(dz);
-  };
-  // Up to the next interior node: RESTORE and instance rows (two-level: the
-  // leading `inst_rows` leaf rows) are taken on the way, a leaf row is
-  // parked; a second leaf row waits in cur for the leaf phase.
-  auto advance = [&]() {
-    if (MODE == WT_CLOSEST && cur != WP_NONE && cur_t >= best_t) pop();  // a leaf phase ran
-    while (cur != WP_NONE && cur < 0) {
-      if (TWO_LEVEL && cur == WT_RESTORE) {  // leave the BLAS
-        enter(-1);
-        pop();
-        continue;
-      }
-      const int row_id = -cur - 2;
-      if (TWO_LEVEL && row_id < inst_rows) {
-        // Instance row: the object-space ray, RESTORE pushed, the BLAS
-        // root next with the instance's entry key.
-        enter(row_id);
-        push(WT_RESTORE, -INFINITY);  // never culled
-        cur = (int)__ldg(rows + (size_t)row_id * WT_ROW + 14);
-        if (STATS) ++lane_stats[WP_INSTANCES];
-        continue;
-      }
-      if (parked != WP_NONE) return;
-      parked = row_id;
-      parked_row = cur_row;
-      pop();
-    }
-  };
-
-  while (true) {
-    // ---- retire: a lane whose traversal ended writes its result ----
-    if (ray >= 0 && cur == WP_NONE && parked == WP_NONE) {
-      if (MODE == WT_ANY) {
-        occ_out[ray] = best_tri >= 0 ? 1 : 0;
-      } else {
-        t_out[ray] = best_tri >= 0 ? best_t : INFINITY;
-        tri_out[ray] = best_tri;
-        if (TWO_LEVEL) inst_out[ray] = best_inst;
-      }
-      ray = -1;
-    }
-
-    // ---- fetch: rays for the empty lanes, one atomicAdd a round ----
-    unsigned have = __ballot_sync(WP_FULL, ray >= 0);
-    if (!exhausted && have != WP_FULL && (unsigned)__popc(have) < WP_FETCH_MIN) {
-      do {
-        const unsigned empty = ~have;
-        const int need = __popc(empty);
-        int base = 0;
-        if (lane == 0) base = atomicAdd(next_ray, need);
-        base = __shfl_sync(WP_FULL, base, 0);
-        if (STATS) ++warp_stats[2];
-        if (ray < 0) {
-          const int i = base + __popc(empty & below);
-          if (i < R) {
-            const float m = __ldg(t_max + i);
-            if (m > 0.0f) {
-              ray = i;
-              enter(-1);
-              tm = m;
-              best_t = m;
-              best_tri = -1;
-              best_inst = -1;
-              cur = 0;  // the root
-              cur_t = 0.0f;
-              sp = 0;
-            } else if (MODE == WT_ANY) {  // a dead ray: its miss, no lane
-              occ_out[i] = 0;
-            } else {
-              t_out[i] = INFINITY;
-              tri_out[i] = -1;
-              if (TWO_LEVEL) inst_out[i] = -1;
-            }
-          }
-        }
-        if (base + need >= R) exhausted = true;
-        have = __ballot_sync(WP_FULL, ray >= 0);
-      } while (!exhausted && have != WP_FULL);
-    }
-    if (have == 0) break;  // only once the counter has run out
-
-    // ---- node phase: one interior node a lane a step ----
-    while (true) {
-      // One reduction counts the lanes that can take a node step, hold a
-      // parked leaf and still traverse (a byte each).
-      const bool can = ray >= 0 && cur >= 0;
-      const unsigned counts = __reduce_add_sync(
-          WP_FULL, (can ? 1u : 0u) | (parked != WP_NONE ? 1u << 8 : 0u) |
-                       (ray >= 0 && (cur != WP_NONE || parked != WP_NONE) ? 1u << 16 : 0u));
-      const unsigned stepping = counts & 0xffu, holding = (counts >> 8) & 0xffu;
-      if (stepping == 0 || holding >= WP_LEAF_MIN || (holding && stepping < WP_STEP_MIN)) break;
-      if (!exhausted && (counts >> 16) < WP_FETCH_MIN) break;
-      if (STATS) ++warp_stats[0];
-      if (!can) continue;
-      // Slab test of the 8 children, two a float4 triple; refs at [48, 56).
-      const float4* n4 = reinterpret_cast<const float4*>(nodes + (size_t)cur * WT_ROW);
-      const float cull = MODE == WT_ANY ? tm : best_t;
-      int ref[8];
-      float key[8];
-      {
-        const float4 r0 = __ldg(n4 + 12), r1 = __ldg(n4 + 13);
-        ref[0] = (int)r0.x; ref[1] = (int)r0.y; ref[2] = (int)r0.z; ref[3] = (int)r0.w;
-        ref[4] = (int)r1.x; ref[5] = (int)r1.y; ref[6] = (int)r1.z; ref[7] = (int)r1.w;
-      }
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        const float4 a = __ldg(n4 + 3 * p), b = __ldg(n4 + 3 * p + 1), c = __ldg(n4 + 3 * p + 2);
-        key[2 * p] = wt_child_key(a.x, a.y, a.z, a.w, b.x, b.y, ref[2 * p], ox, oy, oz, ix, iy,
-                                  iz, cull);
-        key[2 * p + 1] = wt_child_key(b.z, b.w, c.x, c.y, c.z, c.w, ref[2 * p + 1], ox, oy, oz,
-                                      ix, iy, iz, cull);
-      }
-      wt_sort8(key, ref);
-      // The nearest child is the next item; the rest go far -> near.
-#pragma unroll
-      for (int c = 7; c >= 1; --c)
-        if (key[c] < INFINITY) push(ref[c], key[c]);
-      if (key[0] < INFINITY) {
-        cur = ref[0];
-        cur_t = key[0];
-      } else {
-        pop();
-      }
-      if (STATS) ++lane_stats[WP_NODES];
-      advance();
-    }
-
-    // ---- leaf phase: every parked leaf, against the best hit of now ----
-    // The warp's parked leaves' triangles are laid end to end (a scan of
-    // the counts) and tested 32 at a time, one a lane; each owner takes the
-    // least (t, slot) of its hits in a round (a segmented minimum), which is
-    // what its own loop over the slots in order, strict <, would keep.
-    {
-      const bool holds = parked != WP_NONE;
-      if (STATS && __ballot_sync(WP_FULL, holds) != 0) ++warp_stats[1];
-      const float* my_row = rows + (size_t)(holds ? parked : 0) * WT_ROW;
-      const int count = holds ? (int)__ldg(my_row) : 0;
-      int end = count;  // inclusive scan of the counts
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int x = __shfl_up_sync(WP_FULL, end, off);
-        if (lane >= off) end += x;
-      }
-      const int start = end - count;
-      const int total = __shfl_sync(WP_FULL, end, 31);
-      // The leaf's ray: the current one, or (two-level, the lane having
-      // moved on) the ray in the leaf's own space.
-      float lox = ox, loy = oy, loz = oz, ldx = dx, ldy = dy, ldz = dz;
-      if (TWO_LEVEL && holds && parked_row != cur_row)
-        ray_in(parked_row, lox, loy, loz, ldx, ldy, ldz);
-      if (STATS && holds) {
-        ++lane_stats[WP_LEAVES];
-        lane_stats[WP_TRIANGLES] += count;
-      }
-      for (int base = 0; base < total; base += 32) {
-        const int v = base + lane;
-        int owner = 0;  // the first lane whose triangles end past v
-#pragma unroll
-        for (int step = 16; step >= 1; step >>= 1)
-          if (__shfl_sync(WP_FULL, end, owner + step - 1) <= v) owner += step;
-        const int j = v - __shfl_sync(WP_FULL, start, owner);
-        const int leaf = __shfl_sync(WP_FULL, holds ? parked : 0, owner);
-        const float px = __shfl_sync(WP_FULL, lox, owner), py = __shfl_sync(WP_FULL, loy, owner),
-                    pz = __shfl_sync(WP_FULL, loz, owner), qx = __shfl_sync(WP_FULL, ldx, owner),
-                    qy = __shfl_sync(WP_FULL, ldy, owner), qz = __shfl_sync(WP_FULL, ldz, owner);
-        const float limit = __shfl_sync(WP_FULL, MODE == WT_ANY ? tm : best_t, owner);
-        unsigned long long key = ~0ull;  // (t bits, slot) of a hit
-        if (v < total) {
-          float t, u, w;
-          if (wt_tri_hit(rows + (size_t)leaf * WT_ROW + 16 + 9 * j, px, py, pz, qx, qy, qz,
-                         limit, t, u, w))
-            key = ((unsigned long long)__float_as_uint(t) << 32) | (unsigned)j;
-        }
-        // Segmented minimum toward the first lane of each owner's run.
-        const int mine = v < total ? owner : -1;
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const unsigned long long k2 = __shfl_down_sync(WP_FULL, key, off);
-          const int o2 = __shfl_down_sync(WP_FULL, mine, off);
-          if (lane + off < 32 && o2 == mine && k2 < key) key = k2;
-        }
-        // Each owner reads the head of its run in this round.
-        const bool in_round = holds && start < base + 32 && end > base;
-        const int head = in_round ? max(start, base) - base : 0;
-        const unsigned long long got = __shfl_sync(WP_FULL, key, head);
-        if (in_round && got != ~0ull) {
-          best_tri = (int)__ldg(my_row + 1 + (int)(got & 0xffffffffu));
-          if (MODE == WT_ANY) {  // occluded: the traversal ends
-            cur = WP_NONE;
-            sp = 0;
-          } else {
-            best_t = __uint_as_float((unsigned)(got >> 32));
-            if (TWO_LEVEL)
-              best_inst = parked_row < 0 ? -1
-                                         : (int)__ldg(rows + (size_t)parked_row * WT_ROW + 1);
-          }
-        }
-      }
-      parked = WP_NONE;
-    }
-    if (ray >= 0) advance();  // past a waiting leaf row, or a node culled by now
-  }
-
-  if (STATS) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) atomicAdd(stats + k, lane_stats[k]);
-    if (lane == 0) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) atomicAdd(stats + WP_NODE_STEPS + k, warp_stats[k]);
-    }
-  }
-}
-
 template <bool TWO_LEVEL>
 static int wt_primary_launch(cudaStream_t s, const float* nodes, const float* rows,
                              const float* ray_o, const float* ray_d, const float* t_max,
@@ -528,45 +174,6 @@ static int wt_primary_launch(cudaStream_t s, const float* nodes, const float* ro
   const int threads = 128;
   wt_primary_kernel<TWO_LEVEL><<<(R + threads - 1) / threads, threads, 0, s>>>(
       nodes, rows, ray_o, ray_d, t_max, R, t_out, tri_out, inst_out, u_out, v_out);
-  return (int)cudaGetLastError();
-}
-
-// Blocks of wt_walk_kernel<MODE, TWO_LEVEL, STATS> an SM holds, and the
-// card's SM count (occupancy API, asked once a process).
-template <int MODE, bool TWO_LEVEL, bool STATS>
-static int wt_walk_grid(int* per_sm, int* sms) {
-  static int cached_per_sm = 0, cached_sms = 0;
-  if (cached_per_sm == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&cached_sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &cached_per_sm, wt_walk_kernel<MODE, TWO_LEVEL, STATS>, WP_THREADS, 0);
-    if (err != cudaSuccess) return (int)err;
-    if (cached_per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
-  }
-  *per_sm = cached_per_sm;
-  *sms = cached_sms;
-  return 0;
-}
-
-template <int MODE, bool TWO_LEVEL, bool STATS>
-static int wt_walk_launch(cudaStream_t s, const float* nodes, const float* rows, int inst_rows,
-                          const float* ray_o, const float* ray_d, const float* t_max, int R,
-                          int* next_ray, float* t_out, int* tri_out, int* inst_out,
-                          uint8_t* occ_out, unsigned long long* stats) {
-  int per_sm = 0, sms = 0;
-  int err = wt_walk_grid<MODE, TWO_LEVEL, STATS>(&per_sm, &sms);
-  if (err != 0) return err;
-  const int need = (R + WP_THREADS - 1) / WP_THREADS;
-  const int blocks = need < per_sm * sms ? need : per_sm * sms;
-  err = (int)cudaMemsetAsync(next_ray, 0, sizeof(int), s);
-  if (err != 0) return err;
-  wt_walk_kernel<MODE, TWO_LEVEL, STATS><<<blocks, WP_THREADS, 0, s>>>(
-      nodes, rows, inst_rows, ray_o, ray_d, t_max, R, next_ray, t_out, tri_out, inst_out,
-      occ_out, stats);
   return (int)cudaGetLastError();
 }
 
@@ -594,54 +201,34 @@ extern "C" int wt_trace(int mode, int two_level, const float* nodes, const float
                      : wt_primary_launch<false>(s, nodes, rows, ray_o, ray_d, t_max, R,
                                                 t_out, tri_out, inst_out, u_out, v_out);
   }
+  const WtPaged none = {};
 #define WT_ARGS s, nodes, rows, inst_rows, ray_o, ray_d, t_max, R, next_ray, t_out, tri_out, \
-                inst_out, occ_out, stats
+                inst_out, occ_out, stats, none
   const int sel = (mode == WT_ANY ? 4 : 0) + (two_level ? 2 : 0) + (stats ? 1 : 0);
   switch (mode == WT_CLOSEST || mode == WT_ANY ? sel : -1) {
-    case 0: return wt_walk_launch<WT_CLOSEST, false, false>(WT_ARGS);
-    case 1: return wt_walk_launch<WT_CLOSEST, false, true>(WT_ARGS);
-    case 2: return wt_walk_launch<WT_CLOSEST, true, false>(WT_ARGS);
-    case 3: return wt_walk_launch<WT_CLOSEST, true, true>(WT_ARGS);
-    case 4: return wt_walk_launch<WT_ANY, false, false>(WT_ARGS);
-    case 5: return wt_walk_launch<WT_ANY, false, true>(WT_ARGS);
-    case 6: return wt_walk_launch<WT_ANY, true, false>(WT_ARGS);
-    case 7: return wt_walk_launch<WT_ANY, true, true>(WT_ARGS);
+    case 0: return wt_walk_launch<WT_CLOSEST, WL_MERGED, false>(WT_ARGS);
+    case 1: return wt_walk_launch<WT_CLOSEST, WL_MERGED, true>(WT_ARGS);
+    case 2: return wt_walk_launch<WT_CLOSEST, WL_TWO_LEVEL, false>(WT_ARGS);
+    case 3: return wt_walk_launch<WT_CLOSEST, WL_TWO_LEVEL, true>(WT_ARGS);
+    case 4: return wt_walk_launch<WT_ANY, WL_MERGED, false>(WT_ARGS);
+    case 5: return wt_walk_launch<WT_ANY, WL_MERGED, true>(WT_ARGS);
+    case 6: return wt_walk_launch<WT_ANY, WL_TWO_LEVEL, false>(WT_ARGS);
+    case 7: return wt_walk_launch<WT_ANY, WL_TWO_LEVEL, true>(WT_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef WT_ARGS
 }
 
 // What the compiler and the occupancy API report for the kernel of a role
-// (the uninstrumented one): out = {registers a thread, local (stack frame)
-// bytes a thread, static shared bytes a block, threads a block, blocks an
-// SM, SMs}. Returns a cudaError_t.
-template <typename K>
-static int wt_info_of(K kernel, int threads, int* out) {
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
-  int per_sm = 0, dev = 0, sms = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes;
-  out[3] = threads;
-  out[4] = per_sm;
-  out[5] = sms;
-  return 0;
-}
-
+// (the uninstrumented one; wt_info_of). Returns a cudaError_t.
 extern "C" int wt_kernel_info(int mode, int two_level, int* out) {
   switch ((mode << 1) | (two_level ? 1 : 0)) {
     case 0: return wt_info_of(wt_primary_kernel<false>, 128, out);
     case 1: return wt_info_of(wt_primary_kernel<true>, 128, out);
-    case 2: return wt_info_of(wt_walk_kernel<WT_CLOSEST, false, false>, WP_THREADS, out);
-    case 3: return wt_info_of(wt_walk_kernel<WT_CLOSEST, true, false>, WP_THREADS, out);
-    case 4: return wt_info_of(wt_walk_kernel<WT_ANY, false, false>, WP_THREADS, out);
-    case 5: return wt_info_of(wt_walk_kernel<WT_ANY, true, false>, WP_THREADS, out);
+    case 2: return wt_info_of(wt_walk_entry<WT_CLOSEST, WL_MERGED, false>(), WP_THREADS, out);
+    case 3: return wt_info_of(wt_walk_entry<WT_CLOSEST, WL_TWO_LEVEL, false>(), WP_THREADS, out);
+    case 4: return wt_info_of(wt_walk_entry<WT_ANY, WL_MERGED, false>(), WP_THREADS, out);
+    case 5: return wt_info_of(wt_walk_entry<WT_ANY, WL_TWO_LEVEL, false>(), WP_THREADS, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -26,8 +26,9 @@ SOURCES = ("wide_traverse.cu", "shade_gather.cu", "svgf_stencil.cu",
            "probe_gang.cu", "probe_fetch.cu", "probe_block.cu", "probe_read.cu",
            "probe_prims.cu", "probe_dma.cu")
 # Included by shade_gather.cu and fused_shade.cu; by wide_traverse.cu,
-# stream_traverse.cu and probe_gang.cu.
-HEADERS = ("shade_common.cuh", "wide_common.cuh")
+# stream_traverse.cu and probe_gang.cu; by wide_traverse.cu and
+# stream_traverse.cu (the persistent-warp walk).
+HEADERS = ("shade_common.cuh", "wide_common.cuh", "wide_walk.cuh")
 LIB_NAME = "libgpu_raytracer_torch_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false: no a*b+c -> fma contraction, so the kernels round like their
@@ -162,13 +163,15 @@ def load() -> ctypes.CDLL:
     lib.fs_num_fields.argtypes = [ci]
     lib.fs_shade.restype = ci
     lib.fs_shade.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
-    for fn in (lib.st_window, lib.st_stack_capacity, lib.st_portal_base):
+    for fn in (lib.st_window, lib.st_stack_capacity, lib.st_portal_base, lib.st_root_bits):
         fn.restype = ci
         fn.argtypes = []
     lib.st_resident.restype = ci
-    lib.st_resident.argtypes = [ci, vp, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp]
+    lib.st_resident.argtypes = [ci, vp, vp, vp, vp, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp]
     lib.st_page.restype = ci
-    lib.st_page.argtypes = [ci, vp, ci, vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp]
+    lib.st_page.argtypes = [ci, vp, ci, vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp]
+    lib.st_kernel_info.restype = ci
+    lib.st_kernel_info.argtypes = [ci, ci, vp]
     lib.pg_layout.restype = lib.pf_layout.restype = ci
     lib.pg_layout.argtypes = lib.pf_layout.argtypes = [ci]
     lib.pg_ablate.restype = ci
@@ -200,13 +203,15 @@ def load() -> ctypes.CDLL:
     if lib.wt_stack_capacity() != wide_traverse.STACK_CAPACITY:
         raise RuntimeError("wide_traverse.cu WT_STACK != STACK_CAPACITY")
     if lib.wt_num_stats() != len(wide_traverse.STATS):
-        raise RuntimeError("wide_traverse.cu WP_NUM_STATS != len(STATS)")
+        raise RuntimeError("wide_walk.cuh WP_NUM_STATS != len(STATS)")
     if lib.st_window() != stream_traverse.K_PORTALS:
-        raise RuntimeError("stream_traverse.cu ST_K != K_PORTALS")
+        raise RuntimeError("wide_walk.cuh WT_K != K_PORTALS")
     if lib.st_stack_capacity() != wide_traverse.STACK_CAPACITY:
-        raise RuntimeError("stream_traverse.cu ST_STACK != STACK_CAPACITY")
+        raise RuntimeError("stream_traverse.cu WT_STACK != STACK_CAPACITY")
     if lib.st_portal_base() != stream_traverse.PORTAL_BASE:
-        raise RuntimeError("stream_traverse.cu ST_PORTAL_BASE != bvh.stream.PORTAL_BASE")
+        raise RuntimeError("wide_walk.cuh WT_PORTAL_BASE != bvh.stream.PORTAL_BASE")
+    if lib.st_root_bits() != stream_traverse.ROOT_BITS:
+        raise RuntimeError("wide_walk.cuh WT_ROOT_BITS != stream_traverse.ROOT_BITS")
     if (lib.sg_num_fields(0) != len(shade_gather.IN_FIELDS)
             or lib.sg_num_fields(1) != len(shade_gather.OUT_FIELDS)):
         raise RuntimeError("shade_gather.cu field layout != IN_FIELDS/OUT_FIELDS")

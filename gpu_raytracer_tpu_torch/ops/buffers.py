@@ -634,15 +634,20 @@ def _unified_stack(tables: np.ndarray, roots: np.ndarray) -> int:
     return 1 + int(g[roots[:, 0], roots[:, 1]].max(initial=0))
 
 
+def stream_page_stack(stream: dict) -> int:
+    """Worst-case stack of one page traversal, re-derived from the paged
+    tables: the deepest walk from a portal's root row."""
+    roots = np.stack([stream["portal_page"], stream["portal_root"]], axis=1)
+    return _unified_stack(stream["pages"], roots.astype(np.int64))
+
+
 def stream_max_stack(stream: dict) -> int:
     """Worst-case stack of the streamed traversal, re-derived from the paged
     tables: the resident pass from row 0 (portals recorded, not pushed) and
     each page traversal from its portal's root row."""
     resident = stream["resident"][None]
-    pages = stream["pages"]
-    roots = np.stack([stream["portal_page"], stream["portal_root"]], axis=1)
     return max(_unified_stack(resident, np.zeros((1, 2), np.int64)),
-               _unified_stack(pages, roots.astype(np.int64)))
+               stream_page_stack(stream))
 
 
 def upload(host: dict, sampler: dict, device) -> dict:
@@ -674,7 +679,7 @@ def upload(host: dict, sampler: dict, device) -> dict:
         st = host["wide_stream"]
         stream = make_stream_tables(
             t(st["resident"]), t(st["pages"]), t(st["portal_page"], torch.int32),
-            t(st["portal_root"], torch.int32), stream_max_stack(st))
+            t(st["portal_root"], torch.int32), stream_max_stack(st), stream_page_stack(st))
         stream_prim = tuple(t(x, torch.int64) for x in host["stream_prim"])
     binary = host["pallas"]
     if binary is None and host["wide"] is None and stream is None:

@@ -82,10 +82,11 @@ last_pops: Optional[torch.Tensor] = None
 
 WARP = 32
 # Counters of the persistent-warp kernel's instrumented launch
-# (`trace_stats`; csrc/wide_traverse.cu WP_NODES ... WP_FETCHES).
+# (`trace_stats`, stream_traverse.pass_stats; csrc/wide_walk.cuh WP_NODES ...
+# WP_LEAF_ROUNDS).
 STATS = ("nodes", "leaves", "instances", "triangles", "node_steps", "leaf_phases",
-         "fetches")
-# What `kernel_info` returns (csrc/wide_traverse.cu wt_kernel_info).
+         "fetches", "leaf_rounds")
+# What `kernel_info` returns (csrc/wide_walk.cuh wt_info_of).
 INFO = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm", "sms")
 
 
@@ -438,12 +439,14 @@ def warp_utilisation(pops: torch.Tensor) -> float:
 
 def kernel_utilisation(stats: dict) -> float:
     """The warp utilisation of the persistent-warp kernel from its counters
-    (`trace_stats`): the node and leaf visits over 32 x its warp steps
-    (node-phase steps, each one node a lane, and leaf phases, each one leaf
-    a lane). As `warp_utilisation`, whose warp steps are the most visits in
-    a warp; the kernel takes instance rows and RESTORE inside its node
-    steps, so they are not counted as visits here."""
-    steps = stats["node_steps"] + stats["leaf_phases"]
+    (`trace_stats`, stream_traverse.pass_stats): the node and leaf visits
+    over 32 x its warp steps (node-phase steps, each one node a lane, leaf
+    phases, each one leaf a lane, and, where a lane tests its leaves
+    inline, the resident pass, the most leaf rows a lane tested in a node
+    step). As `warp_utilisation`, whose warp steps are the most visits in a
+    warp; the kernel takes instance rows and RESTORE inside its node steps,
+    so they are not counted as visits here."""
+    steps = stats["node_steps"] + stats["leaf_phases"] + stats.get("leaf_rounds", 0)
     visits = stats["nodes"] + stats["leaves"]
     return visits / (WARP * steps) if steps else 1.0
 

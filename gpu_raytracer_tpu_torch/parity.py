@@ -22,9 +22,13 @@ hold the plain versions to the JAX package:
   stencil    the SVGF kernels within rtol = atol = 2e-4 of their plain
              versions (the JAX package's own bar between its XLA forms and
              its stencil kernels, tests/test_pallas_svgf.py);
-  paged      (the paged-table pass kernels, K6) ids, portal lists and
-             overflow counts equal, t and portal entry t within rtol 1e-4;
-             any-hit exactly equal.
+  paged      (the paged-table pass kernels, K6) resident pass: every
+             output bit-equal (t, tri, portal lists, overflow counts); page
+             pass and the whole paged closest-hit trace by the traversal
+             bar: t bit-equal on every lane, hit masks equal, tri equal on
+             > 0.98 of the hits and, where it differs, the kernel's
+             triangle, read from the leaf rows of the paged tables, met at
+             the same t (compare_stream_closest); any-hit exactly equal.
 """
 
 from __future__ import annotations
@@ -123,6 +127,48 @@ def compare_closest(a, b, tri_match: float, with_uv: bool, rays) -> float:
     return (a.t - b.t)[both].abs().max().item()
 
 
+def stream_leaf_rows(tables) -> torch.Tensor:
+    """The leaf rows of paged tables (stream_traverse.StreamTables): every
+    row a leaf ref of the resident walk (from row 0) or of a page walk (from
+    a portal's root row) reaches, as one (L, 128) tensor."""
+    from gpu_raytracer_tpu_torch.ops.stream_traverse import PORTAL_BASE
+
+    dev = tables.resident.device
+    flat = tables.pages.reshape(-1, 128)
+    found = []
+    for table, front, base in (
+            (tables.resident, torch.zeros(1, dtype=torch.int64, device=dev), None),
+            (flat, (tables.portal_page.long() * tables.page_rows
+                    + tables.portal_root.long()), tables.page_rows)):
+        while front.numel():
+            refs = table[front, 48:56].long()
+            # Page refs are local to their page: made global by its base.
+            off = (front - front % base)[:, None] if base else torch.zeros_like(refs)
+            leaf = (refs <= -2) & (refs > -(2 + PORTAL_BASE))
+            found.append(table[(-refs - 2 + off)[leaf]])
+            front = (refs + off)[refs >= 0]
+    return torch.cat(found) if found else flat[:0]
+
+
+def compare_stream_closest(a, b, rays) -> float:
+    """A paged closest-hit result `a` (the page pass's running best, or the
+    whole trace's StreamHit) vs the plain version's `b`, both (t, tri), on
+    the rays `rays` = (StreamTables, o, d): t bit-equal on every lane (a
+    miss carries the running best through, or +inf), then
+    compare_closest's tie-aware bar with the triangles re-tested from the
+    paged tables' leaf rows. Returns max |dt| on the hits."""
+    from gpu_raytracer_tpu_torch.ops import wide_traverse as wt
+
+    ta, tb = a[0], b[0]
+    if not torch.equal(ta, tb):
+        raise AssertionError(f"t not bit-equal on {int((ta != tb).sum())} of "
+                             f"{ta.numel()} lanes")
+    tables, o, d = rays
+    leaves = wt.WideTables(tables.resident[:0], stream_leaf_rows(tables), 0)
+    return compare_closest(wt.Hit(ta, a[1]), wt.Hit(tb, b[1]), TRI_MATCH_INCOHERENT,
+                           False, (leaves, o, d))
+
+
 def compare_binary(a, b) -> float:
     """Binary-traversal kernel hit `a` vs plain hit `b` (equal ids); returns
     the max |dt| over the hits."""
@@ -144,25 +190,14 @@ def compare_binary(a, b) -> float:
 
 def compare_stream_pass(a, b, fields) -> float:
     """A paged-table pass kernel's outputs `a` vs its plain version's `b`
-    (tuples named by `fields`): every integer field (ids, portal lists,
-    overflow counts) equal; every float field (t, portal entry t) equal in
-    its +inf entries and within rtol 1e-4 elsewhere. Returns the max |diff|
-    of the float fields."""
-    worst = 0.0
+    (tuples named by `fields`) by the exact bar: every field (ids, portal
+    lists, overflow counts, t, portal entry t) bit-equal. Returns 0.0."""
     for name, x, y in zip(fields, a, b):
-        if not x.dtype.is_floating_point:
-            if not torch.equal(x, y):
-                raise AssertionError(f"{name} differs on {int((x != y).sum())} entries")
-            continue
-        fin = torch.isfinite(y)
-        if not torch.equal(fin, torch.isfinite(x)):
-            raise AssertionError(f"{name}: +inf entries differ")
-        if bool(fin.any()):
-            diff = (x - y)[fin].abs()
-            if bool((diff > T_RTOL * y[fin].abs()).any()):
-                raise AssertionError(f"{name} beyond rtol {T_RTOL}")
-            worst = max(worst, diff.max().item())
-    return worst
+        if x.shape != y.shape or not torch.equal(x, y):
+            raise AssertionError(f"{name} differs on "
+                                 f"{int((x != y).sum()) if x.shape == y.shape else 'all'} "
+                                 f"entries")
+    return 0.0
 
 
 def compare_any(a, b) -> float:

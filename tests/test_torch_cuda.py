@@ -316,7 +316,9 @@ def pt_stream():
 def test_stream_kernels_match_plain(pt_stream):
     """K6: both passes, closest and any, against their plain versions on
     every wave of a captured sample (window 0 and, on the closest waves, the
-    next window), and the whole paged trace against the plain trace."""
+    next window), and the whole paged trace against the plain trace: the
+    resident pass bit-equal, the page pass and the trace's closest hit by
+    the tie-aware bar, any hit exact."""
     from gpu_raytracer_tpu_torch.integrators.pathtracer import DISPATCH, PLAIN
     from gpu_raytracer_tpu_torch.ops import stream_traverse as st
 
@@ -329,18 +331,54 @@ def test_stream_kernels_match_plain(pt_stream):
                 cs.compare_stream_pass(res, st.resident_plain(any_hit, tables, o, d, tm, skip),
                                        ("t", "tri", "pid", "pt", "ovf"))
             t1, tri1, pid, pt, _ = st.resident_kernel(any_hit, tables, o, d, tm)
+            assert pid.t().is_contiguous() and pt.t().is_contiguous()  # slot-major
             args = (o, d, tm, pid, pt, torch.where(tri1 >= 0, t1, tm), tri1)
-            cs.compare_stream_pass(st.page_kernel(any_hit, tables, *args),
-                                   st.page_plain(any_hit, tables, *args), ("t", "tri"))
+            a, b = st.page_kernel(any_hit, tables, *args), st.page_plain(any_hit, tables, *args)
             if any_hit:
+                cs.compare_stream_pass(a, b, ("t", "tri"))
                 cs.compare_any(DISPATCH.stream_any(tables, o, d, tm),
                                PLAIN.stream_any(tables, o, d, tm))
             else:
+                cs.compare_stream_closest(a, b, (tables, o, d))
                 (a, ra), (b, rb) = (DISPATCH.stream_closest(tables, o, d, tm),
                                     PLAIN.stream_closest(tables, o, d, tm))
-                assert torch.equal(a.tri, b.tri) and torch.equal(ra, rb)
-                cs.compare_stream_pass(a, b, ("t", "tri"))
+                assert torch.equal(ra, rb)
+                cs.compare_stream_closest(a, b, (tables, o, d))
     assert all(st.launches[n] > before[n] for n in st.NAMES)
+
+
+@pytest.mark.parametrize("kind", ["resident", "page"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_stream_pass_counters(pt_stream, kind, any_hit):
+    """K6's instrumented launches: the same results by the pass's bar, the
+    resident pass's visits equal to the plain version's (its order), the
+    page pass's within 10% (postponed leaves), a utilisation in (0, 1]; and
+    the kernel the occupancy API reports keeps 32 warps an SM."""
+    from gpu_raytracer_tpu_torch.ops import stream_traverse as st
+    from gpu_raytracer_tpu_torch.ops import wide_traverse as wt
+
+    got = cs.capture_wave(pt_stream, W * W, route="stream", every=True)
+    (tables, o, d, tm), _ = got["stream_any" if any_hit else "stream_closest"][1]
+    t1, tri1, pid, pt, _ = st.resident_plain(any_hit, tables, o, d, tm)
+    args = (o, d, tm) if kind == "resident" else \
+        (o, d, tm, pid, pt, torch.where(tri1 >= 0, t1, tm), tri1)
+    a, stats = st.pass_stats(kind, any_hit, tables, *args)
+    b = (st.resident_plain if kind == "resident" else st.page_plain)(any_hit, tables, *args)
+    work = st.last_work[st._name(kind, any_hit)]
+    if kind == "resident":
+        cs.compare_stream_pass(a, b, ("t", "tri", "pid", "pt", "ovf"))
+        assert (stats["nodes"], stats["triangles"]) == (work["nodes"], work["triangles"])
+        assert stats["leaf_phases"] == 0
+    else:
+        if any_hit:
+            cs.compare_stream_pass(a, b, ("t", "tri"))
+        else:
+            cs.compare_stream_closest(a, b, (tables, o, d))
+        assert abs(stats["nodes"] - work["nodes"]) <= 0.1 * work["nodes"]
+        assert stats["leaf_rounds"] == 0
+    assert 0.0 < wt.kernel_utilisation(stats) <= 1.0
+    info = st.kernel_info(kind, any_hit)
+    assert info["blocks_per_sm"] * info["threads"] >= 32 * 32
 
 
 def test_render_stream_kernels_match_plain(pt_stream):

@@ -37,10 +37,9 @@ from collections import defaultdict
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WARM = 5
 TOP = 12
-# The port's kernels (csrc/).
+# The port's kernels (csrc/; wt_walk_kernel also runs K6's passes).
 OWN = ("wt_primary_kernel", "wt_walk_kernel", "sg_shade_kernel", "sv_variance_kernel",
-       "sv_atrous_kernel", "bt_trace_kernel", "fs_shade_kernel", "st_resident_kernel",
-       "st_page_kernel")
+       "sv_atrous_kernel", "bt_trace_kernel", "fs_shade_kernel")
 
 
 def profile_sample(step) -> dict:

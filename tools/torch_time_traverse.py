@@ -11,7 +11,8 @@ A tree is a checkout of the repository (a directory that holds
 `gpu_raytracer_tpu_torch/`; `.` is this one; the parent commit unpacked with
 `git archive` into the git-ignored `.chip/` is another), or
 NAME=VALUE[,NAME=VALUE...]: this tree with those `constexpr` integer constants
-of csrc/wide_traverse.cu set so, copied under `.chip/variants/`. Trees run
+of its CUDA sources (csrc/*.cu, csrc/*.cuh; each name defined once) set so,
+copied under `.chip/variants/`. Trees run
 in the order given, a tree named twice runs twice, each run in a process of
 its own that imports only that tree's package.
 
@@ -34,7 +35,14 @@ the plain version's by parity.compare_closest's tie-aware bar or
 compare_any. `--shade` adds K3 on the merged bounce-1 wave; `--stream` the
 K6 passes (resident and page, closest on the bounce-1 wave, any on its
 shadow wave) on the streamed cell (procedural_scene(1920, 1080, 8,
-shared_sphere=True), about a minute and a half of host build).
+shared_sphere=True), about a minute and a half of host build), held as
+chip_smoke.py phase 3st holds them (resident pass bit-equal, page pass
+closest by the tie-aware bar, any exact), with their bounds (phase 3st's
+bytes and operations), the one-thread-a-ray utilisation of the plain
+per-ray visits and, where a tree has `stream_traverse.pass_stats` and
+`kernel_info`, the walk's counters and kernel report. A tree's page pass
+takes the captured portal lists in the layout it asks for (their values do
+not depend on it).
 
 On the CPU (`--device cpu`, a tiny size) the kernels' places are taken by
 the plain versions: no build and no times; the visits and the utilisation
@@ -128,16 +136,22 @@ def resolve_tree(spec: str, made: dict) -> str:
     shutil.rmtree(path, ignore_errors=True)
     shutil.copytree(os.path.join(REPO, PKG), os.path.join(path, PKG),
                     ignore=shutil.ignore_patterns("__pycache__"))
-    src = os.path.join(path, PKG, "csrc", "wide_traverse.cu")
-    text = open(src).read()
+    csrc = os.path.join(path, PKG, "csrc")
+    sources = {f: open(os.path.join(csrc, f)).read() for f in sorted(os.listdir(csrc))
+               if f.endswith((".cu", ".cuh"))}
     for item in spec.split(","):
         name, value = item.split("=", 1)
-        text, n = re.subn(rf"constexpr (int|unsigned) {re.escape(name)} = [^;]+;",
-                          rf"constexpr \1 {name} = {value};", text)
-        if n != 1:
-            raise SystemExit(f"{spec}: no `constexpr int|unsigned {name}` in wide_traverse.cu")
-    with open(src, "w") as f:
-        f.write(text)
+        found = 0
+        for f, text in sources.items():
+            sources[f], n = re.subn(rf"constexpr (int|unsigned) {re.escape(name)} = [^;]+;",
+                                    rf"constexpr \1 {name} = {value};", text)
+            found += n
+        if found != 1:
+            raise SystemExit(f"{spec}: {found} definitions of `constexpr int|unsigned {name}` "
+                             f"in csrc/")
+    for f, text in sources.items():
+        with open(os.path.join(csrc, f), "w") as out:
+            out.write(text)
     made[spec] = path
     return path
 
@@ -268,8 +282,18 @@ def plain_results(waves: dict) -> dict:
         else:
             fn = st.resident_plain if w["kind"] == "resident" else st.page_plain
             res = fn(w["any"], st.StreamTables(*w["tables"]), *w["rays"])
-            facts = {"rays": int(w["rays"][2].shape[0]),
-                     "visits": dict(st.last_work[f"{w['kind']}_{'any' if w['any'] else 'closest'}"])}
+            work = dict(st.last_work[key])
+            ops = work["nodes"] * wt.OPS_PER_NODE + work["triangles"] * wt.OPS_PER_TRIANGLE
+            # Bytes as chip_smoke.py phase 3st counts them.
+            if w["kind"] == "resident":
+                need = work["rows"] * 512 + nbytes(w["rays"], res)
+            else:
+                need = (work["rows"] * 512 + 8 * work["portals"] + 4 * work["entries"]
+                        + 28 * work["lanes"] + nbytes(w["rays"][5:], res))
+            b_ms, b_by = probes.bound(need, ops)
+            facts = {"rays": int(w["rays"][2].shape[0]), "visits": work,
+                     "one_thread_a_ray_util": wt.warp_utilisation(st.last_pops[key]),
+                     "bound_ms": b_ms, "bound_by": b_by}
         out[key] = (res, facts)
     return out
 
@@ -290,6 +314,11 @@ def compare(key: str, w: dict, got, plain) -> float:
             (wt.WideTables(*w["tables"]), o, d))
     if w["kind"] == "shade":
         return parity.compare_shade(got, plain)
+    if w["kind"] == "page" and not w["any"]:
+        from gpu_raytracer_tpu_torch.ops import stream_traverse as st
+
+        o, d = w["rays"][:2]
+        return parity.compare_stream_closest(got, plain, (st.StreamTables(*w["tables"]), o, d))
     fields = ("t", "tri", "pid", "pt", "ovf") if w["kind"] == "resident" else ("t", "tri")
     return parity.compare_stream_pass(got, plain, fields)
 
@@ -375,9 +404,18 @@ def worker(args) -> int:
         else:
             tables = st.StreamTables(*w["tables"])
             kernel = st.resident_kernel if w["kind"] == "resident" else st.page_kernel
+            if w["kind"] == "page" and not hasattr(st, "pass_stats"):
+                # A tree before the slot-major lists takes them row-major
+                # (its wrapper's own copy would be freed before its launch).
+                w = dict(w, rays=tuple(x.contiguous() for x in w["rays"]))
 
             def fn(tables=tables, w=w, kernel=kernel):
                 return kernel(w["any"], tables, *w["rays"])
+            if cuda and hasattr(st, "pass_stats"):
+                rep["info"][key] = st.kernel_info(w["kind"], w["any"])
+                _, stats = st.pass_stats(w["kind"], w["any"], tables, *w["rays"])
+                stats["util"] = wt.kernel_utilisation(stats)
+                rep["stats"][key] = stats
         out = fn()
         if cuda:
             torch.cuda.synchronize()
@@ -433,7 +471,11 @@ def main() -> int:
             raise RuntimeError(f"tree {spec} failed ({proc.returncode})")
         got = torch.load(result, weights_only=False)
         rep = got["rep"]
-        rep["ptxas"] = _native.ptxas_report(rep["ptxas"], "wt_") if rep["ptxas"] else {}
+        # The traversal kernels: wt_* (and st_* of a tree before the paged
+        # passes ran on the walk).
+        rep["ptxas"] = ({**_native.ptxas_report(rep["ptxas"], "wt_"),
+                         **_native.ptxas_report(rep["ptxas"], "st_")}
+                        if rep["ptxas"] else {})
         errs = {}
         for key, w in waves.items():
             out = got["outs"][key]
