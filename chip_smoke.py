@@ -10,7 +10,7 @@ Phases (one line each; any failure raises and the exit code is nonzero):
   2. build: compile gpu_raytracer_tpu_torch/csrc/*.cu with nvcc (timed),
      while the scenes below are built; the ptxas report (registers, spills,
      stack frame) and the occupancy API's blocks an SM of each wide and
-     paged traversal kernel.
+     paged traversal kernel and of the two SVGF kernels.
   scene: the procedural 1920x1080 configuration (cube room, area light,
      three subdivision-6 icospheres, 245,774 triangles, merged tables) and
      the instanced one (441 instances of one subdivision-4 icosphere, room,
@@ -31,8 +31,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      least time the card could take (bound) counted from the wave's
      inputs; beside each traversal role, the warp utilisation of a
      one-thread-a-ray schedule (from the plain version's per-ray visits)
-     and, for the closest and any roles, the persistent-warp kernel's own
-     (its instrumented launch's counters).
+     and the persistent-warp kernel's own (its instrumented launch's
+     counters).
   3sv. the SVGF kernels: the guide and dyn images of the fifth 1080p denoised
      frame of the merged scene (history of 4 frames, so both sides of the
      length < 4 select occur); the variance kernel and each a-trous step
@@ -54,7 +54,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      portals a lane enumerated; and the whole paged trace of each wave
      against the plain trace (the same bars) and against the merged wide
      kernels (K1 primary, K2 closest and any) over the merged tables of the
-     same tree, both timed. The scene line gives the page pass's stack: the
+     same tree, both timed (K1 held there to the plain primary by the
+     primary bar, u, v included). The scene line gives the page pass's stack: the
      deepest page walk plus the K - 1 portals seeded beneath it.
   3pr. the probe kernels (the Hopper counterparts of the JAX package's TPU
      probes tools/exp_gang_ablate.py, exp_gang_micro.py, exp_gather.py and
@@ -266,25 +267,11 @@ def bound(num_bytes: int, ops: int) -> tuple:
 
 
 def pointwise_ops(fn) -> int:
-    """Elements produced by pointwise PyTorch operations while `fn` runs
-    (selects and casts included): the plain shade's operation count."""
-    import torch
-    from torch.utils._python_dispatch import TorchDispatchMode
+    """Elements produced by pointwise PyTorch operations while `fn` runs:
+    the plain shade's and stencils' operation count."""
+    from gpu_raytracer_tpu_torch.probes import pointwise_ops as count
 
-    class Count(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            if torch.Tag.pointwise in func.tags:
-                for o in (out if isinstance(out, (tuple, list)) else (out,)):
-                    if torch.is_tensor(o):
-                        Count.n += o.numel()
-            return out
-
-    with Count():
-        fn()
-    return Count.n
+    return count(fn)
 
 
 def reset_counts() -> None:
@@ -337,12 +324,10 @@ def phase_kernels(pt, results: dict, with_shade: bool) -> None:
         b_ms, b_by = bound(nbytes(tables.nodes, tables.rows, o, d, tm, out), ops)
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-        warps = f"one-thread-a-ray warp utilisation {util:.4f} (plain visits)"
-        if role != "primary":
-            # The persistent-warp kernel's instrumented launch (not timed).
-            _, stats = wt.trace_stats(wt.ROLES.index(role), tables, o, d, tm)
-            warps += (f"; kernel warp utilisation {wt.kernel_utilisation(stats):.4f}, "
-                      f"its counters {stats}")
+        # The persistent-warp kernel's instrumented launch (not timed).
+        _, stats = wt.trace_stats(wt.ROLES.index(role), tables, o, d, tm)
+        warps = (f"one-thread-a-ray warp utilisation {util:.4f} (plain visits); kernel "
+                 f"warp utilisation {wt.kernel_utilisation(stats):.4f}, its counters {stats}")
         say("3", f"{KERNELS[name][0]}: parity ok on the {o.shape[0]}-ray wave (max |dt| "
                  f"{err:.3g}); {text}; {warps}; work {work}, {ops} ops; bound "
                  f"{b_ms:.4f} ms ({b_by})")
@@ -530,6 +515,9 @@ def phase_stream_kernels(pt, merged, results: dict) -> None:
         out6 = fn6(tables, o, d, tm)
         passes = st.last_trace["passes"]
         out12 = getattr(DISPATCH, role)(merged, o, d, tm)
+        if role == "primary":  # K1 on this tree by the primary bar (u, v too)
+            parity.compare_closest(out12, PLAIN.primary(merged, o, d, tm),
+                                   parity.TRI_MATCH_COHERENT, True, (merged, o, d))
         # The whole paged trace against the plain one (closest hit by the
         # tie-aware bar, any hit exact), then against the merged kernels.
         if any_hit:
@@ -1062,6 +1050,7 @@ def main() -> int:
     from gpu_raytracer_tpu_torch.ops import binary_traverse as bt
     from gpu_raytracer_tpu_torch.ops import fused_shade as fs
     from gpu_raytracer_tpu_torch.ops import stream_traverse as st
+    from gpu_raytracer_tpu_torch.ops import svgf_stencil as sv
     from gpu_raytracer_tpu_torch.ops import wide_traverse as wt
     from gpu_raytracer_tpu_torch.scenes import (
         cornell_scene,
@@ -1123,14 +1112,17 @@ def main() -> int:
              f"sources in {info['seconds']:.2f} s")
     for ln in regs:
         say("2", f"ptxas: {ln}")
-    for name, lines in _native.ptxas_report(info["log"], "wt_").items():
-        say("2", f"ptxas {name}: {'; '.join(lines)}")
+    for prefix in ("wt_", "sv_"):
+        for name, lines in _native.ptxas_report(info["log"], prefix).items():
+            say("2", f"ptxas {name}: {'; '.join(lines)}")
     infos = [(role + ("_tl" if two_level else ""), wt.kernel_info(mode, two_level))
              for two_level in (False, True) for mode, role in enumerate(wt.ROLES)]
     infos += [(f"{kind}_{mode}", st.kernel_info(kind, mode == "any"))
               for kind in ("resident", "page") for mode in ("closest", "any")]
+    infos = [(KERNELS[name][0], k) for name, k in infos]
+    infos += [(KERNELS[role][0], sv.kernel_info(role)) for role in sv.ROLES]
     for name, k in infos:
-        say("2", f"{KERNELS[name][0]}: {k['registers']} registers, {k['local_bytes']} bytes "
+        say("2", f"{name}: {k['registers']} registers, {k['local_bytes']} bytes "
                  f"stack frame, {k['shared_bytes']} bytes shared a block of {k['threads']}; "
                  f"occupancy API: {k['blocks_per_sm']} blocks = "
                  f"{k['blocks_per_sm'] * k['threads'] // 32} warps an SM, {k['sms']} SMs")

@@ -24,8 +24,10 @@
 // floats (13 read, 8 written: 174 MB, 0.052 ms at 3.35 TB/s); the variance
 // pass does ~2,500 flops per pixel (49 taps with three exponentials each),
 // the a-trous pass ~450. The taps of neighbouring threads overlap, so they
-// are served by L1/L2 and the simple design reads global memory directly;
-// shared-memory tiles with halos are later work.
+// are served by L1/L2 and both passes read global memory directly. The
+// variance pass keeps the simple design; the a-trous pass, six launches a
+// frame, drops the clamps and 64-bit index arithmetic in the image's
+// interior and reads each tap once (below).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -153,62 +155,143 @@ __constant__ float SV_GAUSS_3[3][3] = {{1.0f / 16, 2.0f / 16, 1.0f / 16},
                                        {2.0f / 16, 4.0f / 16, 2.0f / 16},
                                        {1.0f / 16, 2.0f / 16, 1.0f / 16}};
 
-__global__ void sv_atrous_kernel(const float* __restrict__ g, const float* __restrict__ d,
-                                 float* __restrict__ out, int H, int W, int step,
-                                 float sigma_z, float sigma_n, int ip, float sigma_l) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const size_t plane = (size_t)H * W;
-  const size_t p = (size_t)y * W + x;
-  const SvCenter c = sv_center(g, d, plane, p);
+// ---- the a-trous pass: a clamp-free interior, each tap's planes read once ----
+//
+// One thread a pixel (groups of 2 and 4 pixels with vector loads, and a
+// shared-memory window for steps 1 and 2, ran slower on the H100: PERF.md).
+// The per-pixel arithmetic is sv_atrous_body's, shared by two loaders:
+//   SvInLoad     the interior (the pixel and its taps at +-step and +-1
+//      inside the image, H * W below 2^31): 32-bit offsets, no min/max.
+//   SvClampLoad  the border pixels: each tap at the clamped index (the TPU
+//      kernel's edge padding).
+// Each tap's 12 planes are read once: the luminances feed both the weights
+// and, with the colours, the sums. The tap distance is a constant of the
+// tap's direction, worked out once (bit-identical to the per-tap sqrtf).
+// Planes are named by k: 0-4 the guide's, 5-12 dyn's.
+constexpr int SV_BLOCK_X = 32;
+constexpr int SV_BLOCK_Y = 4;
+
+// The planes of the two images.
+struct SvPlanes {
+  const float* __restrict__ g;
+  const float* __restrict__ d;
+  size_t plane;
+  __device__ __forceinline__ const float* operator()(int k) const {
+    return k < 5 ? g + k * plane : d + (k - 5) * plane;
+  }
+};
+
+struct SvInLoad {
+  SvPlanes pl;
+  int p;  // y * W + x
+  int W;
+  __device__ __forceinline__ float operator()(int k, int oy, int ox) const {
+    return __ldg(pl(k) + (p + oy * W + ox));
+  }
+};
+
+struct SvClampLoad {
+  SvPlanes pl;
+  int y, x, H, W;
+  __device__ __forceinline__ float operator()(int k, int oy, int ox) const {
+    return __ldg(pl(k) + (size_t)min(max(y + oy, 0), H - 1) * W + min(max(x + ox, 0), W - 1));
+  }
+};
+
+// One pixel's a-trous pass (pallas_svgf `_atrous_kernel`, term by term):
+// the 3x3 gaussian pre-blur of the variance, the 8 taps in the plain
+// version's order, the normalisation. `o` takes the 8 output channels.
+template <class Load>
+__device__ __forceinline__ void sv_atrous_body(const Load& ld, int step, float sigma_z,
+                                               float sigma_n, int ip, float sigma_l,
+                                               float o[8]) {
+  const float n0 = ld(0, 0, 0), n1 = ld(1, 0, 0), n2 = ld(2, 0, 0), z = ld(3, 0, 0),
+              dz = ld(4, 0, 0);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) o[c] = ld(5 + c, 0, 0);
+  const float l_d = sv_lum(o[0], o[1], o[2]);
+  const float l_i = sv_lum(o[3], o[4], o[5]);
 
   // 3x3 gaussian pre-blur of the variance, for the weights only.
   float vd_b = 0.0f, vi_b = 0.0f;
+#pragma unroll
   for (int dy = -1; dy <= 1; ++dy) {
+#pragma unroll
     for (int dx = -1; dx <= 1; ++dx) {
-      const size_t q = sv_tap(y, x, dy, dx, H, W);
       const float w = SV_GAUSS_3[dy + 1][dx + 1];
-      vd_b = vd_b + w * d[6 * plane + q];
-      vi_b = vi_b + w * d[7 * plane + q];
+      vd_b = vd_b + w * ld(11, dy, dx);
+      vi_b = vi_b + w * ld(12, dy, dx);
     }
   }
   const float den_d = sigma_l * sqrtf(fmaxf(vd_b, 0.0f)) + 1e-8f;
   const float den_i = sigma_l * sqrtf(fmaxf(vi_b, 0.0f)) + 1e-8f;
 
+  const float dist_axis = sqrtf((float)(step * step));
+  const float dist_diag = sqrtf((float)(step * step + step * step));
   float sum_w_d = 1.0f, sum_w_i = 1.0f;
-  float od0 = d[p], od1 = d[plane + p], od2 = d[2 * plane + p];
-  float oi0 = d[3 * plane + p], oi1 = d[4 * plane + p], oi2 = d[5 * plane + p];
-  float ovd = d[6 * plane + p], ovi = d[7 * plane + p];
+#pragma unroll
   for (int dy = -1; dy <= 1; ++dy) {
+#pragma unroll
     for (int dx = -1; dx <= 1; ++dx) {
       if (dy == 0 && dx == 0) continue;
       const int oy = dy * step, ox = dx * step;
-      const size_t q = sv_tap(y, x, oy, ox, H, W);
-      float w_d, w_i;
-      sv_weights(g, d, plane, q, oy, ox, c, den_d, den_i, sigma_z, sigma_n, ip, &w_d, &w_i);
-      od0 = od0 + w_d * d[q];
-      oi0 = oi0 + w_i * d[3 * plane + q];
-      od1 = od1 + w_d * d[plane + q];
-      oi1 = oi1 + w_i * d[4 * plane + q];
-      od2 = od2 + w_d * d[2 * plane + q];
-      oi2 = oi2 + w_i * d[5 * plane + q];
-      ovd = ovd + (w_d * w_d) * d[6 * plane + q];
-      ovi = ovi + (w_i * w_i) * d[7 * plane + q];
+      const float dist = dy != 0 && dx != 0 ? dist_diag : dist_axis;
+      float q[12];  // normal xyz, depth, then the 8 dyn channels
+#pragma unroll
+      for (int c = 0; c < 4; ++c) q[c] = ld(c, oy, ox);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) q[4 + c] = ld(5 + c, oy, ox);
+      const float ndot = n0 * q[0] + n1 * q[1] + n2 * q[2];
+      const float w_n = sv_pow(fmaxf(ndot, 0.0f), sigma_n, ip);
+      const float w_z = expf(-fabsf(z - q[3]) / (sigma_z * fmaxf(dz * dist, 1e-8f)));
+      const float l_dq = sv_lum(q[4], q[5], q[6]);
+      const float l_iq = sv_lum(q[7], q[8], q[9]);
+      const float w_l_d = expf(-fabsf(l_d - l_dq) / den_d);
+      const float w_l_i = expf(-fabsf(l_i - l_iq) / den_i);
+      const float base = w_n * w_z;
+      const float w_d = base * w_l_d, w_i = base * w_l_i;
+      o[0] = o[0] + w_d * q[4];
+      o[3] = o[3] + w_i * q[7];
+      o[1] = o[1] + w_d * q[5];
+      o[4] = o[4] + w_i * q[8];
+      o[2] = o[2] + w_d * q[6];
+      o[5] = o[5] + w_i * q[9];
+      o[6] = o[6] + (w_d * w_d) * q[10];
+      o[7] = o[7] + (w_i * w_i) * q[11];
       sum_w_d = sum_w_d + w_d;
       sum_w_i = sum_w_i + w_i;
     }
   }
   const float inv_d = 1.0f / sum_w_d;
   const float inv_i = 1.0f / sum_w_i;
-  out[p] = od0 * inv_d;
-  out[plane + p] = od1 * inv_d;
-  out[2 * plane + p] = od2 * inv_d;
-  out[3 * plane + p] = oi0 * inv_i;
-  out[4 * plane + p] = oi1 * inv_i;
-  out[5 * plane + p] = oi2 * inv_i;
-  out[6 * plane + p] = ovd / fmaxf(sum_w_d * sum_w_d, 1e-8f);
-  out[7 * plane + p] = ovi / fmaxf(sum_w_i * sum_w_i, 1e-8f);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    o[c] = o[c] * inv_d;
+    o[3 + c] = o[3 + c] * inv_i;
+  }
+  o[6] = o[6] / fmaxf(sum_w_d * sum_w_d, 1e-8f);
+  o[7] = o[7] / fmaxf(sum_w_i * sum_w_i, 1e-8f);
+}
+
+__global__ void __launch_bounds__(SV_BLOCK_X * SV_BLOCK_Y)
+sv_atrous_kernel(const float* __restrict__ g, const float* __restrict__ d,
+                 float* __restrict__ out, int H, int W, int step, float sigma_z, float sigma_n,
+                 int ip, float sigma_l) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const SvPlanes pl{g, d, (size_t)H * W};
+  const size_t p = (size_t)y * W + x;
+  float o[8];
+  // Taps at +-step and +-1 (step >= 1 covers the pre-blur's); int offsets
+  // while H * W < 2^31.
+  if (y >= step && y + step < H && x >= step && x + step < W && step >= 1 &&
+      pl.plane < (1ull << 31))
+    sv_atrous_body(SvInLoad{pl, (int)p, W}, step, sigma_z, sigma_n, ip, sigma_l, o);
+  else
+    sv_atrous_body(SvClampLoad{pl, y, x, H, W}, step, sigma_z, sigma_n, ip, sigma_l, o);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) out[c * pl.plane + p] = o[c];
 }
 
 static dim3 sv_grid(int H, int W, dim3 block) {
@@ -220,7 +303,7 @@ extern "C" int sv_variance(const float* guide, const float* dyn, float* out, int
                            float sigma_z, float sigma_n, int int_pow, float den,
                            void* stream) {
   if (H <= 0 || W <= 0) return 0;
-  const dim3 block(32, 8);
+  const dim3 block(32, 8);  // sv_kernel_info's threads
   sv_variance_kernel<<<sv_grid(H, W, block), block, 0, (cudaStream_t)stream>>>(
       guide, dyn, out, H, W, sigma_z, sigma_n, int_pow, den);
   return (int)cudaGetLastError();
@@ -230,8 +313,32 @@ extern "C" int sv_atrous(const float* guide, const float* dyn, float* out, int H
                          int step, float sigma_z, float sigma_n, int int_pow, float sigma_l,
                          void* stream) {
   if (H <= 0 || W <= 0) return 0;
-  const dim3 block(32, 8);
+  const dim3 block(SV_BLOCK_X, SV_BLOCK_Y);
   sv_atrous_kernel<<<sv_grid(H, W, block), block, 0, (cudaStream_t)stream>>>(
       guide, dyn, out, H, W, step, sigma_z, sigma_n, int_pow, sigma_l);
   return (int)cudaGetLastError();
+}
+
+// What the compiler and the occupancy API report for a kernel: role 0 the
+// variance kernel, 1 the a-trous kernel. out = {registers a thread, local
+// (stack frame) bytes a thread, static shared bytes a block, threads a
+// block, blocks an SM, SMs}. Returns a cudaError_t.
+extern "C" int sv_kernel_info(int role, int* out) {
+  cudaFuncAttributes a;
+  const void* k = role == 0 ? (const void*)sv_variance_kernel : (const void*)sv_atrous_kernel;
+  const int threads = role == 0 ? 32 * 8 : SV_BLOCK_X * SV_BLOCK_Y;
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t err = cudaFuncGetAttributes(&a, k);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, threads, 0);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = threads;
+  out[4] = per_sm;
+  out[5] = sms;
+  return 0;
 }

@@ -1,7 +1,6 @@
-// Device helpers shared by the wide-BVH traversal kernels: wide_traverse.cu
-// (merged and two-level tables) and stream_traverse.cu (paged tables;
-// wt_child_key serves wide_traverse.cu's persistent-warp kernel). The
-// row layout is bvh/wide.py's: a node row holds 8 child boxes at [c*6, c*6+6)
+// Device helpers of the persistent-warp walk (wide_walk.cuh) that the
+// wide-BVH traversal kernels share: wide_traverse.cu (merged and two-level
+// tables) and stream_traverse.cu (paged tables). The row layout is bvh/wide.py's: a node row holds 8 child boxes at [c*6, c*6+6)
 // and child refs at [48+c]; a leaf row holds a triangle count at [0], ids at
 // [1+j] and edge-form triangles at [16+9j, 16+9j+9).
 //
@@ -32,46 +31,10 @@ __device__ __forceinline__ float wt_inv1(float c) {
   return 1.0f / (fabsf(c) < WT_DIV_EPS ? tiny : c);
 }
 
-// The first 56 floats of a node row (bounds and refs), as 16-byte loads.
-__device__ __forceinline__ void wt_load_node(const float* row, float b[56]) {
-  const float4* row4 = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int k = 0; k < 14; ++k) {
-    const float4 q = __ldg(row4 + k);
-    b[4 * k + 0] = q.x;
-    b[4 * k + 1] = q.y;
-    b[4 * k + 2] = q.z;
-    b[4 * k + 3] = q.w;
-  }
-}
-
-// Slab test of a node's 8 children: key[c] is the entry distance max(tn, 0)
-// of a non-empty child that the ray hits (tn <= tf, tf > 0) and enters
-// before `cull`, +inf for the others; ref[c] its child ref, in slot order.
-__device__ __forceinline__ void wt_child_keys(const float b[56], float ox, float oy,
-                                              float oz, float ix, float iy, float iz,
-                                              float cull, float key[8], int ref[8]) {
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int r = (int)b[48 + c];
-    const float tx0 = (b[c * 6 + 0] - ox) * ix;
-    const float ty0 = (b[c * 6 + 1] - oy) * iy;
-    const float tz0 = (b[c * 6 + 2] - oz) * iz;
-    const float tx1 = (b[c * 6 + 3] - ox) * ix;
-    const float ty1 = (b[c * 6 + 4] - oy) * iy;
-    const float tz1 = (b[c * 6 + 5] - oz) * iz;
-    const float tn = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
-    const float tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
-    const float te = fmaxf(tn, 0.0f);
-    const bool take = (r != -1) && (tn <= tf) && (tf > 0.0f) && (te < cull);
-    key[c] = take ? te : INFINITY;
-    ref[c] = r;
-  }
-}
-
-// wt_child_keys' arithmetic for ONE child with bounds lo (lx, ly, lz), hi
-// (hx, hy, hz) and ref r, so a caller can stream a node row's boxes (two
-// children per three float4 loads) instead of holding all 56 floats.
+// Slab test of ONE child with bounds lo (lx, ly, lz), hi (hx, hy, hz) and
+// ref r: the entry distance max(tn, 0) of a non-empty child that the ray
+// hits (tn <= tf, tf > 0) and enters before `cull`, +inf otherwise. A caller
+// streams a node row's boxes into it (two children per three float4 loads).
 __device__ __forceinline__ float wt_child_key(float lx, float ly, float lz, float hx,
                                               float hy, float hz, int r, float ox, float oy,
                                               float oz, float ix, float iy, float iz,
@@ -107,21 +70,6 @@ __device__ __forceinline__ void wt_sort8(float key[8], int ref[8]) {
         ref[a] = ref[a + 1];
         ref[a + 1] = tr;
       }
-    }
-  }
-}
-
-// Push the children with finite keys far to near, so the nearest pops
-// first; pushes past the stack's capacity are dropped.
-template <int STACK>
-__device__ __forceinline__ void wt_push_sorted(const float key[8], const int ref[8],
-                                               int* st_ref, float* st_t, int& sp) {
-#pragma unroll
-  for (int c = 7; c >= 0; --c) {
-    if (key[c] < INFINITY && sp < STACK) {
-      st_ref[sp] = ref[c];
-      st_t[sp] = key[c];
-      ++sp;
     }
   }
 }

@@ -1,8 +1,8 @@
 // The persistent-warp walk over wide-BVH tables for NVIDIA Hopper (sm_90a):
 // one kernel template, wt_walk_kernel<MODE, LAYOUT, STATS>, shared by the
-// bounce and shadow waves of wide_traverse.cu (K2 merged, K4 two-level) and
-// the two passes of stream_traverse.cu (K6 resident and page) over paged
-// tables. Row layout and float semantics: wide_common.cuh.
+// primary, bounce and shadow waves of wide_traverse.cu (K1, K2 merged, K4
+// two-level) and the two passes of stream_traverse.cu (K6 resident and page)
+// over paged tables. Row layout and float semantics: wide_common.cuh.
 //
 // The walk (each step timed as it went in; PERF.md has the numbers):
 //  1. Persistent warps that fetch rays. The grid is the SM count times the
@@ -46,8 +46,19 @@
 //     busy.
 // Any hit ends a lane at its first hit; the lane then fetches again.
 //
+// MODE: WT_PRIMARY is the closest hit with barycentrics (K1; the trailing
+// WtUv argument holds the u, v outputs), WT_CLOSEST the closest hit (K2,
+// K4, K6), WT_ANY the occlusion test. The primary wave's u, v are those of
+// the winning triangle, carried out of the leaf test: from the leaf phase
+// by two shuffles from the lane that won the segmented minimum. The primary
+// wave fetches as the bounce waves do (a warp keeping one 32-ray tile row
+// until all its lanes were done ran 5-9% slower on the coherent wave); its
+// two-level walk tests leaves inline, as the resident pass does (4.7%
+// faster there), its merged walk parks them (inline ran 22% slower).
+// PERF.md has the timings.
+//
 // LAYOUT selects the tables and what a pass adds to the walk:
-//   WL_MERGED, WL_TWO_LEVEL  `nodes` and `rows` of bvh/wide.py (K2, K4).
+//   WL_MERGED, WL_TWO_LEVEL  `nodes` and `rows` of bvh/wide.py (K1, K2, K4).
 //   WL_RESIDENT  the resident rows of paged tables (bvh/stream.py), one
 //       unified index space (`nodes` == `rows`): row v >= 0 a node, ref
 //       <= -2 a leaf row -(ref+2), refs <= -(2 + WT_PORTAL_BASE) portals. A
@@ -78,8 +89,9 @@
 // Semantics against the plain versions: merged, two-level and page pass
 // change only the order of a ray's visits, so the closest t is the minimum
 // over the same triangle tests (bit-equal), any hit is equal, and tri / inst
-// may differ only at an exact tie in t. The resident pass visits in the
-// plain version's order: every output bit-equal.
+// (and the primary wave's u, v, those of the triangle it names) may differ
+// only at an exact tie in t. The resident pass visits in the plain version's
+// order: every output bit-equal.
 //
 // Two-level invariants: RESTORE is pushed with the key -inf, so the pop-time
 // cull never drops it (a dropped RESTORE would leave the ray in object space
@@ -132,12 +144,14 @@ enum {
   WP_NODE_STEPS, WP_LEAF_PHASES, WP_FETCHES, WP_LEAF_ROUNDS, WP_NUM_STATS
 };
 
-// What the paged passes add to the walk's arguments: a trailing argument of
-// their kernels alone (the `Paged` pack, empty for the merged and two-level
-// tables). Every paged-only statement sits under `if constexpr`, so the
-// merged and two-level kernels compile as they did before the paged passes
-// joined the walk (the same registers and spills; an unused helper lambda
-// had cost K2's any-hit kernel two registers).
+// What the paged passes (WtPaged) and the primary wave (WtUv) add to the
+// walk's arguments: a trailing argument of their kernels alone (the `Extra`
+// pack, empty for the closest and any roles on merged and two-level
+// tables). Every paged-only and primary-only statement sits under `if
+// constexpr`, so the closest and any kernels compile as they did before the
+// paged passes and the primary wave joined the walk (the same registers
+// and spills; an unused helper lambda had cost K2's any-hit kernel two
+// registers).
 struct WtPaged {
   int page_rows;           // page pass: rows a page
   const int* portal_page;  // page pass: (P,) page of each portal
@@ -147,9 +161,18 @@ struct WtPaged {
   float* pt;               // (WT_K, R) entry t, +inf past a ray's list
   int* ovf;                // resident pass: (R,) portals past the window
 };
+// What the primary wave adds: its u, v outputs, (R,) f32 each.
+struct WtUv {
+  float* u;
+  float* v;
+};
 struct WtNone {};
 __device__ __forceinline__ WtNone wt_paged_of() { return {}; }
 __device__ __forceinline__ WtPaged wt_paged_of(const WtPaged& p) { return p; }
+__device__ __forceinline__ WtNone wt_paged_of(const WtUv&) { return {}; }
+__device__ __forceinline__ WtNone wt_uv_of() { return {}; }
+__device__ __forceinline__ WtNone wt_uv_of(const WtPaged&) { return {}; }
+__device__ __forceinline__ WtUv wt_uv_of(const WtUv& p) { return p; }
 
 // Batcher's odd-even merge sort of n (a power of two) keys: comparator
 // `index` of its network (-1, -1 past the last), and the network's size.
@@ -187,7 +210,7 @@ __device__ __forceinline__ void wt_sort_net(unsigned long long* e) {
   }
 }
 
-template <int MODE, int LAYOUT, bool STATS, typename... Paged>
+template <int MODE, int LAYOUT, bool STATS, typename... Extra>
 __global__ void __launch_bounds__(WP_THREADS, WP_MIN_BLOCKS)
 wt_walk_kernel(const float* __restrict__ nodes, const float* __restrict__ rows,
                int inst_rows, const float* __restrict__ ray_o,
@@ -195,13 +218,17 @@ wt_walk_kernel(const float* __restrict__ nodes, const float* __restrict__ rows,
                int* __restrict__ next_ray, float* __restrict__ t_out,
                int* __restrict__ tri_out, int* __restrict__ inst_out,
                uint8_t* __restrict__ occ_out, unsigned long long* __restrict__ stats,
-               Paged... paged) {
+               Extra... extra) {
   constexpr bool TWO_LEVEL = LAYOUT == WL_TWO_LEVEL;
   constexpr bool RECORD = LAYOUT == WL_RESIDENT;  // portals recorded, leaves inline
   constexpr bool SEEDED = LAYOUT == WL_PAGE;      // stack seeded with the portals
   constexpr bool PAGED = RECORD || SEEDED;        // t_out / tri_out, not occ_out
+  constexpr bool PRIMARY = MODE == WT_PRIMARY;    // closest hit with u, v
+  constexpr bool NEAREST = MODE != WT_ANY;        // the closest hit: cull by the best
+  constexpr bool INLINE = RECORD || (PRIMARY && TWO_LEVEL);  // leaves tested at once
   constexpr unsigned FETCH_MIN = RECORD ? WP_RESIDENT_FETCH_MIN : WP_FETCH_MIN;
-  const auto pg = wt_paged_of(paged...);  // WtNone for the merged and two-level tables
+  const auto pg = wt_paged_of(extra...);  // WtNone but for the paged passes
+  const auto uv = wt_uv_of(extra...);     // WtNone but for the primary wave
   unsigned long long stack[WT_STACK];  // ref << 32 | key bits
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
@@ -212,6 +239,7 @@ wt_walk_kernel(const float* __restrict__ nodes, const float* __restrict__ rows,
   float tm = 0.0f, best_t = 0.0f;
   int best_tri = -1;  // ANY: >= 0 once occluded
   int best_inst = -1;
+  float best_u = 0.0f, best_v = 0.0f;  // primary: the best hit's barycentrics
   // Two-level: the instance row whose space the ray is in (-1: world), and
   // that of the parked leaf, which keeps its space while the lane goes on
   // through RESTORE and instance rows.
@@ -224,7 +252,7 @@ wt_walk_kernel(const float* __restrict__ nodes, const float* __restrict__ rows,
   bool exhausted = false;
   unsigned long long lane_stats[4] = {0, 0, 0, 0};
   unsigned long long warp_stats[4] = {0, 0, 0, 0};
-  unsigned inline_leaves = 0;  // STATS, resident pass: leaf rows of this node step
+  unsigned inline_leaves = 0;  // STATS, inline leaves: leaf rows of this node step
 
   auto push = [&](int ref, float key) {
     if (sp < WT_STACK)  // make_tables rules out a full stack
@@ -236,7 +264,7 @@ wt_walk_kernel(const float* __restrict__ nodes, const float* __restrict__ rows,
     while (sp > 0) {
       const unsigned long long e = stack[--sp];
       const float key = __uint_as_float((unsigned)e);
-      if (MODE == WT_CLOSEST && key >= best_t) continue;
+      if (NEAREST && key >= best_t) continue;
       cur = (int)(e >> 32);
       cur_t = key;
       return;
@@ -276,7 +304,7 @@ wt_walk_kernel(const float* __restrict__ nodes, const float* __restrict__ rows,
   // parked (resident pass: tested at once); a second leaf row waits in cur
   // for the leaf phase.
   auto advance = [&]() {
-    if (MODE == WT_CLOSEST && cur != WP_NONE && cur_t >= best_t) pop();  // a leaf phase ran
+    if (NEAREST && cur != WP_NONE && cur_t >= best_t) pop();  // a leaf phase ran
     while (cur != WP_NONE && cur < 0) {
       if (TWO_LEVEL && cur == WT_RESTORE) {  // leave the BLAS
         enter(-1);
@@ -293,7 +321,7 @@ wt_walk_kernel(const float* __restrict__ nodes, const float* __restrict__ rows,
         if (STATS) ++lane_stats[WP_INSTANCES];
         continue;
       }
-      if constexpr (RECORD) {
+      if constexpr (INLINE) {
         // The lane's own leaf test, slots in order, strict < (the plain
         // version's fold), before its next slab test.
         const float* row = rows + (size_t)row_id * WT_ROW;
@@ -317,6 +345,12 @@ wt_walk_kernel(const float* __restrict__ nodes, const float* __restrict__ rows,
             }
             best_t = t;
             best_tri = (int)__ldg(row + 1 + j);
+            if constexpr (PRIMARY) {
+              if (TWO_LEVEL)
+                best_inst = cur_row < 0 ? -1 : (int)__ldg(rows + (size_t)cur_row * WT_ROW + 1);
+              best_u = u;
+              best_v = w;
+            }
           }
         }
         pop();
@@ -348,6 +382,10 @@ wt_walk_kernel(const float* __restrict__ nodes, const float* __restrict__ rows,
         t_out[ray] = best_tri >= 0 ? best_t : INFINITY;
         tri_out[ray] = best_tri;
         if (TWO_LEVEL) inst_out[ray] = best_inst;
+      }
+      if constexpr (PRIMARY) {
+        uv.u[ray] = best_u;
+        uv.v[ray] = best_v;
       }
       if constexpr (RECORD) {  // the list's tail past the recorded slots
         pg.ovf[ray] = ovf;
@@ -418,6 +456,10 @@ wt_walk_kernel(const float* __restrict__ nodes, const float* __restrict__ rows,
                 best_t = m;
                 best_tri = -1;
                 best_inst = -1;
+                if constexpr (PRIMARY) {
+                  best_u = 0.0f;
+                  best_v = 0.0f;
+                }
                 cur = 0;  // the root
                 cur_t = 0.0f;
                 sp = 0;
@@ -431,6 +473,10 @@ wt_walk_kernel(const float* __restrict__ nodes, const float* __restrict__ rows,
                 t_out[i] = INFINITY;
                 tri_out[i] = -1;
                 if (TWO_LEVEL) inst_out[i] = -1;
+                if constexpr (PRIMARY) {
+                  uv.u[i] = 0.0f;
+                  uv.v[i] = 0.0f;
+                }
                 if constexpr (RECORD) {  // and an empty list
                   pg.ovf[i] = 0;
 #pragma unroll
@@ -455,7 +501,7 @@ wt_walk_kernel(const float* __restrict__ nodes, const float* __restrict__ rows,
             wt_sort_net<4>(e);
           if (n > 0) {
             const float near = __uint_as_float((unsigned)(e[0] >> 32));
-            if (MODE == WT_CLOSEST && near >= best_t) {
+            if (NEAREST && near >= best_t) {
               ray = -1;  // every portal lies past the best hit: nothing to do
             } else {
 #pragma unroll
@@ -478,7 +524,7 @@ wt_walk_kernel(const float* __restrict__ nodes, const float* __restrict__ rows,
 
     // ---- node phase: one interior node a lane a step ----
     while (true) {
-      if constexpr (STATS && RECORD) {
+      if constexpr (STATS && INLINE) {
         warp_stats[3] += __reduce_max_sync(WP_FULL, inline_leaves);
         inline_leaves = 0;
       }
@@ -553,7 +599,7 @@ wt_walk_kernel(const float* __restrict__ nodes, const float* __restrict__ rows,
     // the counts) and tested 32 at a time, one a lane; each owner takes the
     // least (t, slot) of its hits in a round (a segmented minimum), which is
     // what its own loop over the slots in order, strict <, would keep.
-    if constexpr (!RECORD) {
+    if constexpr (!INLINE) {
       const bool holds = parked != WP_NONE;
       if (STATS && __ballot_sync(WP_FULL, holds) != 0) ++warp_stats[1];
       const float* my_row = rows + (size_t)(holds ? parked : 0) * WT_ROW;
@@ -588,8 +634,9 @@ wt_walk_kernel(const float* __restrict__ nodes, const float* __restrict__ rows,
                     qy = __shfl_sync(WP_FULL, ldy, owner), qz = __shfl_sync(WP_FULL, ldz, owner);
         const float limit = __shfl_sync(WP_FULL, MODE == WT_ANY ? tm : best_t, owner);
         unsigned long long key = ~0ull;  // (t bits, slot) of a hit
+        float u = 0.0f, w = 0.0f;
         if (v < total) {
-          float t, u, w;
+          float t;
           if (wt_tri_hit(rows + (size_t)leaf * WT_ROW + 16 + 9 * j, px, py, pz, qx, qy, qz,
                          limit, t, u, w))
             key = ((unsigned long long)__float_as_uint(t) << 32) | (unsigned)j;
@@ -606,8 +653,19 @@ wt_walk_kernel(const float* __restrict__ nodes, const float* __restrict__ rows,
         const bool in_round = holds && start < base + 32 && end > base;
         const int head = in_round ? max(start, base) - base : 0;
         const unsigned long long got = __shfl_sync(WP_FULL, key, head);
-        if (in_round && got != ~0ull) {
-          best_tri = (int)__ldg(my_row + 1 + (int)(got & 0xffffffffu));
+        const bool won = in_round && got != ~0ull;
+        const int slot = (int)(got & 0xffffffffu);
+        if constexpr (PRIMARY) {
+          // u, v from the lane that tested the winning slot in this round.
+          const int src = won ? start + slot - base : lane;
+          const float gu = __shfl_sync(WP_FULL, u, src), gv = __shfl_sync(WP_FULL, w, src);
+          if (won) {
+            best_u = gu;
+            best_v = gv;
+          }
+        }
+        if (won) {
+          best_tri = (int)__ldg(my_row + 1 + slot);
           if (MODE == WT_ANY) {  // occluded: the traversal ends
             cur = WP_NONE;
             sp = 0;
@@ -634,17 +692,23 @@ wt_walk_kernel(const float* __restrict__ nodes, const float* __restrict__ rows,
   }
 }
 
-// The kernel of a walk (the paged passes' with their trailing argument).
+// The kernel of a walk (the paged passes' and the primary wave's with their
+// trailing argument).
 using WtWalkFn = void (*)(const float*, const float*, int, const float*, const float*,
                           const float*, int, int*, float*, int*, int*, uint8_t*,
                           unsigned long long*);
 using WtPagedWalkFn = void (*)(const float*, const float*, int, const float*, const float*,
                                const float*, int, int*, float*, int*, int*, uint8_t*,
                                unsigned long long*, WtPaged);
+using WtUvWalkFn = void (*)(const float*, const float*, int, const float*, const float*,
+                            const float*, int, int*, float*, int*, int*, uint8_t*,
+                            unsigned long long*, WtUv);
 template <int MODE, int LAYOUT, bool STATS>
 static auto wt_walk_entry() {
   if constexpr (LAYOUT >= WL_RESIDENT)
     return static_cast<WtPagedWalkFn>(&wt_walk_kernel<MODE, LAYOUT, STATS, WtPaged>);
+  else if constexpr (MODE == WT_PRIMARY)
+    return static_cast<WtUvWalkFn>(&wt_walk_kernel<MODE, LAYOUT, STATS, WtUv>);
   else
     return static_cast<WtWalkFn>(&wt_walk_kernel<MODE, LAYOUT, STATS>);
 }
@@ -672,12 +736,14 @@ static int wt_walk_grid(int* per_sm, int* sms) {
 
 // One launch of the walk over R rays: the grid is the blocks the rays need,
 // at most every SM full; the ray counter `next_ray` is zeroed on the stream
-// first. Returns the cudaError_t of the launch (0 on success).
+// first. `pg` reaches the paged passes' kernels, `uv` the primary wave's.
+// Returns the cudaError_t of the launch (0 on success).
 template <int MODE, int LAYOUT, bool STATS>
 static int wt_walk_launch(cudaStream_t s, const float* nodes, const float* rows, int inst_rows,
                           const float* ray_o, const float* ray_d, const float* t_max, int R,
                           int* next_ray, float* t_out, int* tri_out, int* inst_out,
-                          uint8_t* occ_out, unsigned long long* stats, const WtPaged& pg) {
+                          uint8_t* occ_out, unsigned long long* stats, const WtPaged& pg,
+                          const WtUv& uv = {}) {
   int per_sm = 0, sms = 0;
   int err = wt_walk_grid<MODE, LAYOUT, STATS>(&per_sm, &sms);
   if (err != 0) return err;
@@ -689,6 +755,10 @@ static int wt_walk_launch(cudaStream_t s, const float* nodes, const float* rows,
     wt_walk_kernel<MODE, LAYOUT, STATS, WtPaged><<<blocks, WP_THREADS, 0, s>>>(
         nodes, rows, inst_rows, ray_o, ray_d, t_max, R, next_ray, t_out, tri_out, inst_out,
         occ_out, stats, pg);
+  else if constexpr (MODE == WT_PRIMARY)
+    wt_walk_kernel<MODE, LAYOUT, STATS, WtUv><<<blocks, WP_THREADS, 0, s>>>(
+        nodes, rows, inst_rows, ray_o, ray_d, t_max, R, next_ray, t_out, tri_out, inst_out,
+        occ_out, stats, uv);
   else
     wt_walk_kernel<MODE, LAYOUT, STATS><<<blocks, WP_THREADS, 0, s>>>(
         nodes, rows, inst_rows, ray_o, ray_d, t_max, R, next_ray, t_out, tri_out, inst_out,

@@ -154,6 +154,8 @@ def load() -> ctypes.CDLL:
     lib.sv_variance.argtypes = [vp, vp, vp, ci, ci, cf, cf, ci, cf, vp]
     lib.sv_atrous.restype = ci
     lib.sv_atrous.argtypes = [vp, vp, vp, ci, ci, ci, cf, cf, ci, cf, vp]
+    lib.sv_kernel_info.restype = ci
+    lib.sv_kernel_info.argtypes = [ci, vp]
     lib.bt_stack_depth.restype = ci
     lib.bt_stack_depth.argtypes = []
     lib.bt_trace.restype = ci

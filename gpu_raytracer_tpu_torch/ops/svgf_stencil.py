@@ -3,9 +3,10 @@
 Counterpart of the JAX package's `ops/pallas_svgf.py` (`svgf_spatial_pallas`,
 TPU kernels `_variance_kernel` and `_atrous_kernel`). On CUDA tensors
 `svgf_variance` and `svgf_atrous` launch the hand-written kernels in
-`csrc/svgf_stencil.cu` (one thread per pixel) and raise if they cannot; on CPU
-tensors they run `variance_plain` and `atrous_plain`, the same arithmetic as
-tensor ops, in the TPU kernels' tap sign (`img[y + oy]`), tap order and
+`csrc/svgf_stencil.cu` (one thread per pixel; the a-trous kernel without
+clamps in the image's interior) and raise if they cannot; on CPU tensors
+they run `variance_plain` and `atrous_plain`, the same arithmetic as tensor
+ops, in the TPU kernels' tap sign (`img[y + oy]`), tap order and
 normalisations.
 
 Images are float32, channel-major and unpadded:
@@ -40,6 +41,8 @@ ROLES = ("svgf_variance", "svgf_atrous")
 # plain version's only where the plain version runs.
 launches = {r: 0 for r in ROLES}
 plain_calls = {r: 0 for r in ROLES}
+# What `kernel_info` returns (csrc/svgf_stencil.cu sv_kernel_info).
+INFO = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm", "sms")
 
 
 def pack_guide(normal, depth, dz) -> torch.Tensor:
@@ -228,6 +231,17 @@ def _launch(role: str, guide, dyn, step, sigma_z, sigma_n, sigma_l):
     _native.check(err, role)
     launches[role] += 1
     return out
+
+
+def kernel_info(role: str) -> dict:
+    """What the compiler and the occupancy API report for a role's kernel on
+    the card (INFO: registers, stack frame and static shared bytes, the
+    threads of a block, the blocks an SM holds, the SMs)."""
+    lib = _native.load()
+    out = (ctypes.c_int * len(INFO))()
+    _native.check(lib.sv_kernel_info(ROLES.index(role), out),
+                  f"svgf_stencil.kernel_info({role})")
+    return dict(zip(INFO, list(out)))
 
 
 def svgf_variance(guide, dyn, sigma_z: float = 4.0, sigma_n: float = 16.0,

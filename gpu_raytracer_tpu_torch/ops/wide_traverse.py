@@ -11,16 +11,18 @@ Counterpart of the TPU kernel roles of the JAX package:
     kernels: occlusion, NEE shadow waves.
 
 On a CUDA tensor each launches a hand-written kernel in
-`csrc/wide_traverse.cu` and raises if it cannot: `trace_primary` the one
-thread a ray kernel (`wt_primary_kernel`), `trace_closest` and `trace_any` the
-persistent-warp kernel (`wt_walk_kernel`: ray fetch from a counter, the near
-child kept in registers, postponed leaves tested by the whole warp).
+`csrc/wide_traverse.cu` and raises if it cannot: every role the
+persistent-warp kernel (`wt_walk_kernel` of `csrc/wide_walk.cuh`: ray fetch
+from a counter, the near child kept in registers, postponed leaves tested by
+the whole warp; the primary role also returns the winning triangle's u, v
+and, on two-level tables, tests its leaves in the lane's own order).
 On a CPU tensor it runs `trace_plain`, the plain PyTorch version of the same
 algorithm: the same tables, the same stable near-first child order, the same
 pop-time cull, vectorised over the rays that still hold stack entries. The
 persistent-warp kernel visits a ray's nodes and leaves in another order, so
-its closest t equals the plain version's bit for bit and its tri / inst may
-differ at an exact tie in t (parity.compare_closest holds it to that).
+its closest t equals the plain version's bit for bit and its tri / inst (and
+u, v, the named triangle's) may differ at an exact tie in t
+(parity.compare_closest holds it to that).
 
 Tables (bvh/wide.py): nodes (N, 128), rows (L, 128) f32, in one of two
 layouts, marked on `WideTables.two_level`:
@@ -379,7 +381,7 @@ def _launch(mode: int, tables: WideTables, ray_o, ray_d, t_max, stats=None):
     ray_o = ray_o.contiguous()
     ray_d = ray_d.contiguous()
     t_max = t_max.contiguous()
-    t_out = tri_out = inst_out = u_out = v_out = occ = next_ray = None
+    t_out = tri_out = inst_out = u_out = v_out = occ = None
     if mode == ANY:
         occ = torch.empty(R, dtype=torch.bool, device=dev)
     else:
@@ -390,9 +392,8 @@ def _launch(mode: int, tables: WideTables, ray_o, ray_d, t_max, stats=None):
         if mode == PRIMARY:
             u_out = torch.empty(R, dtype=torch.float32, device=dev)
             v_out = torch.empty(R, dtype=torch.float32, device=dev)
-    if mode != PRIMARY:
-        # The persistent warps' ray counter, zeroed on the stream by wt_trace.
-        next_ray = torch.empty(1, dtype=torch.int32, device=dev)
+    # The persistent warps' ray counter, zeroed on the stream by wt_trace.
+    next_ray = torch.empty(1, dtype=torch.int32, device=dev)
 
     def ptr(x):
         return None if x is None else ctypes.c_void_p(x.data_ptr())
@@ -412,13 +413,16 @@ def _launch(mode: int, tables: WideTables, ray_o, ray_d, t_max, stats=None):
 
 
 def trace_stats(mode: int, tables: WideTables, ray_o, ray_d, t_max):
-    """The persistent-warp kernel's instrumented launch (closest or any hit,
-    on the card): (its result, {counter: count} over STATS). The counters
-    are the visits it made (nodes, leaves, instances, triangles) and, summed
-    over warps, the steps of its node phase, its leaf phases and its
-    fetches; `kernel_utilisation` turns them into the warp utilisation."""
-    if mode == PRIMARY or ray_o.device.type != "cuda":
-        raise ValueError("trace_stats instruments the closest and any roles on the card")
+    """The persistent-warp kernel's instrumented launch (any role, on the
+    card): (its result, {counter: count} over STATS). The counters are the
+    visits it made (nodes, leaves, instances, triangles) and, summed over
+    warps, the steps of its node phase, its leaf phases, its fetches and its
+    rounds of inline leaf tests; `kernel_utilisation` turns them into the
+    warp utilisation."""
+    if mode not in (PRIMARY, CLOSEST, ANY):
+        raise ValueError(f"no traversal role {mode}")
+    if ray_o.device.type != "cuda":
+        raise ValueError("trace_stats instruments the kernel: pass tensors on the card")
     _check_rays(tables, ray_o, ray_d, t_max)
     stats = torch.zeros(len(STATS), dtype=torch.int64, device=ray_o.device)
     out = _launch(mode, tables, ray_o, ray_d, t_max, stats=stats)

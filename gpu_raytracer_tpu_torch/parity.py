@@ -12,8 +12,9 @@ hold the plain versions to the JAX package:
              > 0.995 on coherent (primary) waves, > 0.98 on incoherent
              ones, and where the ids differ the kernel's triangle meets
              the ray at the same t (an exact tie, re-tested by the plain
-             triangle test); u, v atol 1e-4 where they agree; any-hit
-             exactly equal;
+             triangle test); u, v atol 1e-4 where the ids agree, and
+             where they differ within 1e-4 of the re-tested triangle's;
+             any-hit exactly equal;
   shade      >= 99.9% of lanes agree (masks equal, every consumed
              continuous output within rtol 1e-4, atol 1e-5), for both
              fused shade kernels (K3 and K7);
@@ -46,12 +47,13 @@ RAY_COUNT_REL = 5e-3
 STENCIL_TOL = 2e-4
 
 
-def retest_t(tables, o, d, tri, inst):
-    """The t at which the triangle `tri` (merged tables: prim code; two-level:
-    leaf-order triangle id, in instance `inst`) meets each ray (o, d), by the
-    plain triangle test (wide_traverse.leaf_hits, no upper bound; two-level:
-    the ray in the instance's space by its inverse transform, in the
-    kernels' term order); NaN where it misses or the tables do not hold it."""
+def retest(tables, o, d, tri, inst):
+    """(t, u, v) at which the triangle `tri` (merged tables: prim code;
+    two-level: leaf-order triangle id, in instance `inst`) meets each ray
+    (o, d), by the plain triangle test (wide_traverse.leaf_hits, no upper
+    bound; two-level: the ray in the instance's space by its inverse
+    transform, in the kernels' term order); NaN where it misses or the
+    tables do not hold it."""
     from gpu_raytracer_tpu_torch.ops import wide_traverse as wt
 
     rows = tables.rows
@@ -63,7 +65,7 @@ def retest_t(tables, o, d, tri, inst):
     pos = torch.nonzero(valid).flatten()
     inst_rows = torch.nonzero(rows[:, 0] < 0).flatten()
     if K == 0 or pos.numel() == 0 or (tables.two_level and inst_rows.numel() == 0):
-        return nan
+        return nan, nan, nan
     ids, order = torch.sort(rows[:, 1:1 + cap].long().flatten()[pos])
     at = torch.searchsorted(ids, tri.long()).clamp(max=ids.numel() - 1)
     found = ids[at] == tri.long()
@@ -75,11 +77,11 @@ def retest_t(tables, o, d, tri, inst):
         found = found & (inst_ids[ia] == inst.long())
         m = rows[inst_rows[inst_order[ia]], 2:14]
         o, d = wt._affine_rows(m, o, True), wt._affine_rows(m, d, False)
-    hit, t, _, _ = wt.leaf_hits(rows[row], o, d, torch.full((K,), float("inf"),
+    hit, t, u, v = wt.leaf_hits(rows[row], o, d, torch.full((K,), float("inf"),
                                                              device=rows.device))
     pick = slot[:, None]
     ok = found & torch.gather(hit, 1, pick).flatten()
-    return torch.where(ok, torch.gather(t, 1, pick).flatten(), nan)
+    return tuple(torch.where(ok, torch.gather(x, 1, pick).flatten(), nan) for x in (t, u, v))
 
 
 def compare_closest(a, b, tri_match: float, with_uv: bool, rays) -> float:
@@ -90,7 +92,9 @@ def compare_closest(a, b, tri_match: float, with_uv: bool, rays) -> float:
     `tri_match` of the hits; where they differ, the kernel's triangle,
     re-tested on that ray by the plain triangle test, meets it at the same
     t (an exact tie, which either order may resolve to either triangle); u,
-    v within UV_ATOL where the ids agree. Returns max |dt| on the hits."""
+    v within UV_ATOL where the ids agree, and where they differ within
+    UV_ATOL of the re-tested triangle's (the kernel's u, v must be those of
+    the triangle it names). Returns max |dt| on the hits."""
     hit_a, hit_b = a.tri >= 0, b.tri >= 0
     if not torch.equal(hit_a, hit_b):
         raise AssertionError(f"hit masks differ on {int((hit_a != hit_b).sum())} rays")
@@ -111,16 +115,23 @@ def compare_closest(a, b, tri_match: float, with_uv: bool, rays) -> float:
     if match <= tri_match:
         raise AssertionError(f"tri match {match} <= {tri_match}")
     differ = torch.nonzero(both & ~same).flatten()
+    uv = 0.0
     if differ.numel():
         tables, o, d = rays
-        t_re = retest_t(tables, o[differ], d[differ], a.tri[differ],
-                        None if a.inst is None else a.inst[differ])
+        t_re, u_re, v_re = retest(tables, o[differ], d[differ], a.tri[differ],
+                                  None if a.inst is None else a.inst[differ])
         false = int((t_re != a.t[differ]).sum())  # NaN: a miss
         if false:
             raise AssertionError(f"ids differ on {differ.numel()} hits, {false} of them "
                                  f"not at an exact tie in t")
+        if with_uv:
+            uv = max((a.u[differ] - u_re).abs().max().item(),
+                     (a.v[differ] - v_re).abs().max().item())
+            if not uv <= UV_ATOL:
+                raise AssertionError(f"u/v err {uv} > {UV_ATOL} at the {differ.numel()} "
+                                     f"tie-swapped ids")
     if with_uv:
-        uv = max((a.u - b.u)[same].abs().max().item(),
+        uv = max(uv, (a.u - b.u)[same].abs().max().item(),
                  (a.v - b.v)[same].abs().max().item())
         if uv > UV_ATOL:
             raise AssertionError(f"u/v err {uv} > {UV_ATOL}")

@@ -37,6 +37,28 @@ CELL = (1920, 1080, 6)
 BOUNCES = 3
 
 
+def pointwise_ops(fn) -> int:
+    """Elements produced by pointwise PyTorch operations while `fn` runs
+    (selects and casts included): a plain version's operation count."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if torch.Tag.pointwise in func.tags:
+                for o in (out if isinstance(out, (tuple, list)) else (out,)):
+                    if torch.is_tensor(o):
+                        Count.n += o.numel()
+            return out
+
+    with Count():
+        fn()
+    return Count.n
+
+
 def merged_cell(width: int = CELL[0], height: int = CELL[1], subdiv: int = CELL[2],
                 device: str = "cuda"):
     """The merged cell's `Pathtracer` (procedural room with three icospheres

@@ -75,12 +75,13 @@ def test_two_level_kernel_matches_plain(pt_tl, role):
 
 
 @pytest.mark.parametrize("two_level", [False, True])
-@pytest.mark.parametrize("role", ["closest", "any"])
+@pytest.mark.parametrize("role", ["primary", "closest", "any"])
 def test_walk_kernel_counters(pt, pt_tl, captured, two_level, role):
     """The persistent-warp kernel's instrumented launch: the same hits by the
-    bar, its counters (visits within 10% of the plain version's: only the
-    order of a ray's visits changes), a utilisation in (0, 1]; and the
-    kernel the occupancy API reports for it keeps 32 warps an SM."""
+    bar (the primary wave's u, v too), its counters (visits within 10% of
+    the plain version's: only the order of a ray's visits changes), a
+    utilisation in (0, 1]; and the kernel the occupancy API reports for it
+    keeps 32 warps an SM."""
     from gpu_raytracer_tpu_torch.integrators.pathtracer import PLAIN
     from gpu_raytracer_tpu_torch.ops import wide_traverse as wt
 
@@ -92,7 +93,8 @@ def test_walk_kernel_counters(pt, pt_tl, captured, two_level, role):
     if role == "any":
         cs.compare_any(a, b)
     else:
-        cs.compare_closest(a, b, cs.TRI_MATCH_INCOHERENT, False, (tables, o, d))
+        cs.compare_closest(a, b, cs.TRI_MATCH_COHERENT if role == "primary"
+                           else cs.TRI_MATCH_INCOHERENT, role == "primary", (tables, o, d))
     for k in ("nodes", "leaves", "instances"):
         assert abs(stats[k] - wt.last_work[k]) <= 0.1 * wt.last_work[k]
     assert 0.0 < wt.kernel_utilisation(stats) <= 1.0
@@ -163,6 +165,56 @@ def test_svgf_kernels_match_plain(pt_svgf):
             b = getattr(PLAIN, role)(*args, **kw)
             assert sv.launches[role] == before + 1
             cs.compare_stencil(a, b)
+
+
+def _stencil_images(H, W, seed):
+    """Seeded guide (5, H, W) and dyn (8, H, W) images on the card: unit
+    normals, depths with a sky band (1e30), dz, colours and variances."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = rng.normal(size=(3, H, W))
+    n /= np.linalg.norm(n, axis=0, keepdims=True)
+    depth = rng.uniform(1.0, 10.0, (1, H, W))
+    depth[:, : H // 4] = 1e30
+    guide = np.concatenate([n, depth, rng.uniform(1e-3, 0.5, (1, H, W))])
+    dyn = np.concatenate([rng.uniform(0, 2, (3, H, W)), rng.uniform(0, 1, (3, H, W)),
+                          rng.uniform(0, 0.5, (2, H, W))])
+    return (torch.as_tensor(guide.astype(np.float32), device="cuda"),
+            torch.as_tensor(dyn.astype(np.float32), device="cuda"))
+
+
+@pytest.mark.parametrize("step", [1, 2, 3, 4, 8, 16, 32])
+@pytest.mark.parametrize("H, W", [(13, 37), (1, 9), (9, 1), (1, 1), (40, 64), (70, 1920)])
+def test_atrous_kernel_edges_match_plain(H, W, step):
+    """The a-trous kernel's border path (clamped taps) and interior path:
+    widths that are not a multiple of 4 or 32, steps past the image, 1-pixel
+    rows and columns, and images with an interior at every step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from gpu_raytracer_tpu_torch.ops import svgf_stencil as sv
+
+    guide, dyn = _stencil_images(H, W, 100 * H + W)
+    cs.compare_stencil(sv.svgf_atrous(guide, dyn, step), sv.atrous_plain(guide, dyn, step))
+
+
+def test_atrous_kernel_matches_plain_at_1080p():
+    """Every a-trous step of a captured 1920x1080 denoised frame (the fifth;
+    a scene past the small-scene gates) against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from gpu_raytracer_tpu_torch import CPUConfig, GPUConfig
+    from gpu_raytracer_tpu_torch.integrators.pathtracer import DISPATCH, PLAIN, Pathtracer
+    from gpu_raytracer_tpu_torch.scenes import procedural_scene
+
+    p = Pathtracer(procedural_scene(1920, 1080, 4), CPUConfig(),
+                   GPUConfig(num_bounces=2, enable_svgf=True), device="cuda")
+    p.init_device()
+    got = cs.capture_svgf(p, 5)
+    steps = [args[2] for args, _ in got["svgf_atrous"]]
+    assert steps == [1, 2, 4, 8, 16, 32]
+    for args, kw in got["svgf_atrous"]:
+        cs.compare_stencil(DISPATCH.svgf_atrous(*args, **kw), PLAIN.svgf_atrous(*args, **kw))
 
 
 def test_demod_shade_kernel_matches_plain(pt_svgf):

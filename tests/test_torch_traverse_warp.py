@@ -166,7 +166,7 @@ def test_bar_fails_a_false_tie(tie):
     kernel = _swap(plain, [5], 2)  # the triangle beside them, claimed at t
     with pytest.raises(AssertionError, match="not at an exact tie"):
         parity.compare_closest(kernel, plain, 0.98, False, (tables, o, d))
-    t_re = parity.retest_t(tables, o[[5]], d[[5]], torch.tensor([2]), None)
+    t_re = parity.retest(tables, o[[5]], d[[5]], torch.tensor([2]), None)[0]
     assert bool(torch.isnan(t_re).all())  # the ray misses triangle 2
 
 
@@ -191,7 +191,7 @@ def test_bar_keeps_masks_and_match_fraction(tie):
 
 
 def test_retest_two_level(wave):
-    """retest_t re-derives the plain version's own closest t from (tri,
+    """retest re-derives the plain version's own closest t from (tri,
     inst) on two-level tables (the ray in the instance's space); a wrong
     instance does not."""
     tables, o, d, tmax = wave
@@ -199,12 +199,12 @@ def test_retest_two_level(wave):
     hit = wt.trace_closest_plain(tables, o, d, tmax)
     lanes = torch.nonzero(hit.tri >= 0).flatten()
     inst = None if hit.inst is None else hit.inst[lanes]
-    t_re = parity.retest_t(tables, o[lanes], d[lanes], hit.tri[lanes], inst)
+    t_re = parity.retest(tables, o[lanes], d[lanes], hit.tri[lanes], inst)[0]
     assert torch.equal(t_re, hit.t[lanes])
     if tables.two_level:
         sphere = torch.nonzero(hit.inst[lanes] >= 2).flatten()  # past room and light
         assert sphere.numel() > 0
         k = lanes[sphere]
         moved = (hit.inst[k] - 2 + 1) % 9 + 2  # another sphere of the 3 x 3 grid
-        t_bad = parity.retest_t(tables, o[k], d[k], hit.tri[k], moved)
+        t_bad = parity.retest(tables, o[k], d[k], hit.tri[k], moved)[0]
         assert not bool((t_bad == hit.t[k]).any())

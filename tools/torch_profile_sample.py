@@ -38,7 +38,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WARM = 5
 TOP = 12
 # The port's kernels (csrc/; wt_walk_kernel also runs K6's passes).
-OWN = ("wt_primary_kernel", "wt_walk_kernel", "sg_shade_kernel", "sv_variance_kernel",
+OWN = ("wt_walk_kernel", "sg_shade_kernel", "sv_variance_kernel",
        "sv_atrous_kernel", "bt_trace_kernel", "fs_shade_kernel")
 
 

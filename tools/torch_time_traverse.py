@@ -42,7 +42,14 @@ bytes and operations), the one-thread-a-ray utilisation of the plain
 per-ray visits and, where a tree has `stream_traverse.pass_stats` and
 `kernel_info`, the walk's counters and kernel report. A tree's page pass
 takes the captured portal lists in the layout it asks for (their values do
-not depend on it).
+not depend on it). `--svgf` adds K5 on the merged cell's fifth denoised
+frame (SVGF + TAA, as chip_smoke.py phase 3sv captures it): the variance
+kernel and the a-trous kernel at each of its six steps, held to their plain
+versions by the stencil bar, with their bounds (the images read and written
+once, or the plain version's pointwise operations), each kernel's report
+(`svgf_stencil.kernel_info`, where a tree has it) and the ptxas lines of the
+`sv_` kernels; the variance output of every tree must be bit-equal to the
+first tree's (the a-trous outputs' bit-equality is reported).
 
 On the CPU (`--device cpu`, a tiny size) the kernels' places are taken by
 the plain versions: no build and no times; the visits and the utilisation
@@ -112,6 +119,8 @@ def parse(argv=None):
                    help="decline merged tables for the instanced cell (small sizes)")
     p.add_argument("--shade", action="store_true", help="also K3 on the merged wave")
     p.add_argument("--stream", action="store_true", help="also K6 on the streamed cell")
+    p.add_argument("--svgf", action="store_true",
+                   help="also K5 on the merged cell's fifth denoised frame")
     p.add_argument("--out", default=os.path.join(REPO, ".chip", "time_traverse", "result.json"))
     p.add_argument("--work", default=os.path.join(REPO, ".chip", "time_traverse"))
     p.add_argument("--worker", help=argparse.SUPPRESS)  # a tree's process
@@ -162,7 +171,8 @@ def resolve_tree(spec: str, made: dict) -> str:
 
 def capture(args) -> dict:
     """{key: wave}: the six traversal roles' waves (key = role, "_tl" on
-    two-level tables), with --shade "shade", with --stream the K6 passes'."""
+    two-level tables), with --shade "shade", with --stream the K6 passes',
+    with --svgf the K5 stencils' ("svgf_variance", "svgf_atrous_<step>")."""
     import torch
 
     from gpu_raytracer_tpu_torch import CPUConfig, GPUConfig, parity
@@ -204,11 +214,35 @@ def capture(args) -> dict:
             (tables, params, lanes), kw = got["shade"]
             waves["shade"] = {"kind": "shade", "cell": cell,
                               "args": (tables, params, lanes), "kw": kw}
+        if args.svgf and cell == "merged":
+            waves.update(capture_svgf(pt))
     if args.stream:
         waves.update(capture_stream(W, H, dev))
     if dev == "cuda":
         torch.cuda.synchronize()
     return waves, info
+
+
+def capture_svgf(pt) -> dict:
+    """The K5 stencils' inputs on the fifth denoised frame of `pt`'s scene
+    (SVGF + TAA on its tables, 1 sample a frame)."""
+    import dataclasses
+
+    from gpu_raytracer_tpu_torch import parity
+    from gpu_raytracer_tpu_torch.integrators.pathtracer import Pathtracer
+
+    p = Pathtracer(pt.scene, pt.cpu_config,
+                   dataclasses.replace(pt.gpu_config, enable_svgf=True), device=pt.device)
+    p.buffers = pt.buffers
+    p.reset_accumulation()
+    got = parity.capture_svgf(p, 5)
+    waves = {}
+    for role in ("svgf_variance", "svgf_atrous"):
+        for args, kw in got[role]:
+            key = role if role == "svgf_variance" else f"{role}_{args[2]}"
+            waves[key] = {"kind": "svgf", "role": role, "cell": "denoised", "args": args,
+                          "kw": kw}
+    return waves
 
 
 def capture_stream(W, H, dev) -> dict:
@@ -279,6 +313,12 @@ def plain_results(waves: dict) -> dict:
         elif w["kind"] == "shade":
             res = PLAIN.shade(*w["args"], **w["kw"])
             facts = {"rays": int(w["args"][2]["t"].shape[0])}
+        elif w["kind"] == "svgf":
+            def fn(w=w):
+                return getattr(PLAIN, w["role"])(*w["args"], **w["kw"])
+            res = fn()
+            b_ms, b_by = probes.bound(nbytes(w["args"][:2], res), probes.pointwise_ops(fn))
+            facts = {"shape": list(res.shape), "bound_ms": b_ms, "bound_by": b_by}
         else:
             fn = st.resident_plain if w["kind"] == "resident" else st.page_plain
             res = fn(w["any"], st.StreamTables(*w["tables"]), *w["rays"])
@@ -314,6 +354,8 @@ def compare(key: str, w: dict, got, plain) -> float:
             (wt.WideTables(*w["tables"]), o, d))
     if w["kind"] == "shade":
         return parity.compare_shade(got, plain)
+    if w["kind"] == "svgf":
+        return parity.compare_stencil(got, plain)
     if w["kind"] == "page" and not w["any"]:
         from gpu_raytracer_tpu_torch.ops import stream_traverse as st
 
@@ -363,6 +405,7 @@ def worker(args) -> int:
     from gpu_raytracer_tpu_torch.integrators.pathtracer import DISPATCH
     from gpu_raytracer_tpu_torch.ops import _native
     from gpu_raytracer_tpu_torch.ops import stream_traverse as st
+    from gpu_raytracer_tpu_torch.ops import svgf_stencil as sv
     from gpu_raytracer_tpu_torch.ops import wide_traverse as wt
 
     if not os.path.abspath(pkg.__file__).startswith(tree + os.sep):
@@ -382,6 +425,8 @@ def worker(args) -> int:
             rep["ptxas"] = f.read()  # parsed by the calling process
         _native.load()
     waves = torch.load(os.path.join(args.work, "waves.pt"), weights_only=False)
+    with open(os.path.join(_native.CSRC_DIR, "wide_traverse.cu")) as f:
+        primary_walk = "wt_primary_kernel" not in f.read()
     outs = {}
     for key, w in waves.items():
         if w["kind"] == "wide":
@@ -394,13 +439,19 @@ def worker(args) -> int:
             if cuda:
                 rep["info"][key] = (wt.kernel_info(mode, two_level) if hasattr(wt, "kernel_info")
                                     else shim_info(tree, mode, two_level))
-                if mode != wt.PRIMARY and hasattr(wt, "trace_stats"):
+                # A tree whose primary wave runs the walk instruments it too.
+                if hasattr(wt, "trace_stats") and (mode != wt.PRIMARY or primary_walk):
                     _, stats = wt.trace_stats(mode, tables, *w["rays"])
                     stats["util"] = wt.kernel_utilisation(stats)
                     rep["stats"][key] = stats
         elif w["kind"] == "shade":
             def fn(w=w):
                 return DISPATCH.shade(*w["args"], **w["kw"])
+        elif w["kind"] == "svgf":
+            def fn(w=w):
+                return getattr(DISPATCH, w["role"])(*w["args"], **w["kw"])
+            if cuda and hasattr(sv, "kernel_info"):
+                rep["info"][key] = sv.kernel_info(w["role"])
         else:
             tables = st.StreamTables(*w["tables"])
             kernel = st.resident_kernel if w["kind"] == "resident" else st.page_kernel
@@ -459,7 +510,7 @@ def main() -> int:
     for key, (_, facts) in plain.items():
         print(f"[time_traverse] wave {key}: {json.dumps(facts)}", flush=True)
 
-    runs = []
+    runs, first_outs = [], {}
     for k, (spec, path) in enumerate(trees):
         result = os.path.join(args.work, f"run{k}.pt")
         t0 = time.perf_counter()
@@ -472,14 +523,23 @@ def main() -> int:
         got = torch.load(result, weights_only=False)
         rep = got["rep"]
         # The traversal kernels: wt_* (and st_* of a tree before the paged
-        # passes ran on the walk).
-        rep["ptxas"] = ({**_native.ptxas_report(rep["ptxas"], "wt_"),
-                         **_native.ptxas_report(rep["ptxas"], "st_")}
+        # passes ran on the walk); the stencils: sv_*.
+        rep["ptxas"] = ({k: v for prefix in ("wt_", "st_", "sv_")
+                         for k, v in _native.ptxas_report(rep["ptxas"], prefix).items()}
                         if rep["ptxas"] else {})
         errs = {}
         for key, w in waves.items():
             out = got["outs"][key]
             errs[key] = compare(key, w, out, plain[key][0])
+            if w["kind"] == "svgf":
+                # The first tree's output is the yardstick: the variance
+                # kernel must not change by a bit.
+                first = first_outs.setdefault(key, out)
+                same = bool(torch.equal(out, first))
+                rep.setdefault("bit_equal_first_tree", {})[key] = same
+                if w["role"] == "svgf_variance" and not same:
+                    raise AssertionError(f"tree {spec}: svgf_variance differs from tree "
+                                         f"{trees[0][0]}'s")
         rep["max_abs_err"] = errs
         rep["seconds"] = time.perf_counter() - t0
         runs.append((spec, rep))
@@ -493,6 +553,9 @@ def main() -> int:
                   f"{info['blocks_per_sm'] * info['threads'] // 32} warps an SM", flush=True)
         for key, stats in rep["stats"].items():
             print(f"[time_traverse]   {key} instrumented: {json.dumps(stats)}", flush=True)
+        if rep.get("bit_equal_first_tree"):
+            print(f"[time_traverse]   K5 outputs bit-equal to tree {trees[0][0]}'s: "
+                  f"{json.dumps(rep['bit_equal_first_tree'])}", flush=True)
 
     summary = {}
     for spec, rep in runs:
