@@ -9,8 +9,9 @@ Phases (one line each; any failure raises and the exit code is nonzero):
   1. device: `nvidia-smi` name and power limit; no CUDA -> exit 1, no result.
   2. build: compile gpu_raytracer_tpu_torch/csrc/*.cu with nvcc (timed),
      while the scenes below are built; the ptxas report (registers, spills,
-     stack frame) and the occupancy API's blocks an SM of each wide and
-     paged traversal kernel and of the two SVGF kernels.
+     stack frame) and the occupancy API's blocks an SM of each wide, paged
+     and binary traversal kernel and of the SVGF kernels (the variance
+     kernel's two instances).
   scene: the procedural 1920x1080 configuration (cube room, area light,
      three subdivision-6 icospheres, 245,774 triangles, merged tables) and
      the instanced one (441 instances of one subdivision-4 icosphere, room,
@@ -37,12 +38,16 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      frame of the merged scene (history of 4 frames, so both sides of the
      length < 4 select occur); the variance kernel and each a-trous step
      against its plain version at full frame (rtol = atol = 2e-4), timed as
-     phase 3 times kernels, with bounds; and the shade kernel with demod on
-     a captured full wave of the denoised path.
+     phase 3 times kernels, with bounds; the variance kernel's run-time
+     instance (sigma_n 8 and 12.5; the path's 16 runs the static one) on
+     the same frame against its plain version; and the shade kernel with
+     demod on a captured full wave of the denoised path.
   3sm. the small-scene kernels: binary closest hit (bounce 1), binary any
      hit (its shadow wave) and the fused shade (bounce 1; and every BSDF on
      synthetic mixed-material tables) against their plain versions on a
-     captured full 262,144-ray wave of the 512x512 slice, timed, with bounds.
+     captured full 262,144-ray wave of the 512x512 slice, timed, with bounds;
+     and K8 closest and any on hand-made tables 80 nodes deep
+     (parity.deep_binary_tables), where the 48-entry stack drops pushes.
   3st. the paged-table kernels: resident and page passes, closest and any,
      against their plain versions on captured full 777,600-ray waves of the
      streamed scene (the primary wave, the bounce-1 wave and its shadow
@@ -397,6 +402,18 @@ def phase_small_kernels(pt, results: dict) -> None:
                    f"({hits} {'hits' if role == 'binary_closest' else 'occluded'}, max "
                    f"|dt| {err:.3g}); {text}; work {work}, {ops} ops; bound {b_ms:.4f} ms "
                    f"({b_by})")
+
+    # The drop rule at the stack's real depth: a chain deeper than 48.
+    tables = bt.make_tables(*(torch.as_tensor(x, device=pt.device)
+                              for x in parity.deep_binary_tables()))
+    o, d, tm = (torch.as_tensor(x, device=pt.device) for x in parity.deep_binary_rays(65_536))
+    err = parity.compare_binary(DISPATCH.binary_closest(tables, o, d, tm),
+                                PLAIN.binary_closest(tables, o, d, tm))
+    parity.compare_any(DISPATCH.binary_any(tables, o, d, tm), PLAIN.binary_any(tables, o, d, tm))
+    depth = int((tables.nodes[:, 13] == 0).sum())
+    say("3sm", f"binary_traverse closest and any: parity ok on {o.shape[0]} rays over a chain "
+               f"{depth} interior nodes deep (pushes past the 48-entry stack dropped; max "
+               f"|dt| {err:.3g})")
 
     args, kw = got["fused_shade"][1]
     err = parity.compare_shade(DISPATCH.fused_shade(*args, **kw),
@@ -782,6 +799,7 @@ def phase_svgf_kernels(scene, pt, results: dict) -> None:
 
     from gpu_raytracer_tpu_torch import parity
     from gpu_raytracer_tpu_torch.integrators.pathtracer import DISPATCH, PLAIN
+    from gpu_raytracer_tpu_torch.ops import svgf_stencil as sv
 
     pts = denoised_pathtracer(scene, pt)
     got = parity.capture_svgf(pts, 5)
@@ -814,6 +832,17 @@ def phase_svgf_kernels(scene, pt, results: dict) -> None:
                          "bound_by": rows[0][4], "library_ms": None}
     say("3sv", f"history length < 4 on {short:.3f} of the pixels; svgf_atrous "
                f"numbers are means over its {len(got['svgf_atrous'])} steps")
+    # The variance kernel's run-time instance (the path runs the static one).
+    (guide, dyn, sigma_z, _, sigma_l), _ = got["svgf_variance"][0]
+    before = dict(sv.variance_instances)
+    for sigma_n in (8.0, 12.5):
+        args = (guide, dyn, sigma_z, sigma_n, sigma_l)
+        err = parity.compare_stencil(sv.svgf_variance(*args), sv.variance_plain(*args))
+        say("3sv", f"svgf_stencil.variance sigma_n {sigma_n}: parity ok on "
+                   f"{tuple(dyn.shape)} (max abs err {err:.3g})")
+    if sv.variance_instances["runtime"] != before["runtime"] + 2:
+        raise AssertionError(f"the run-time variance instance did not run: "
+                             f"{sv.variance_instances} (before {before})")
 
     (tables, params, lanes), kw = parity.capture_wave(pts, pts.cpu_config.batch_size,
                                                       with_aovs=True)["shade"]
@@ -1112,7 +1141,7 @@ def main() -> int:
              f"sources in {info['seconds']:.2f} s")
     for ln in regs:
         say("2", f"ptxas: {ln}")
-    for prefix in ("wt_", "sv_"):
+    for prefix in ("wt_", "bt_", "sv_"):
         for name, lines in _native.ptxas_report(info["log"], prefix).items():
             say("2", f"ptxas {name}: {'; '.join(lines)}")
     infos = [(role + ("_tl" if two_level else ""), wt.kernel_info(mode, two_level))
@@ -1120,7 +1149,9 @@ def main() -> int:
     infos += [(f"{kind}_{mode}", st.kernel_info(kind, mode == "any"))
               for kind in ("resident", "page") for mode in ("closest", "any")]
     infos = [(KERNELS[name][0], k) for name, k in infos]
-    infos += [(KERNELS[role][0], sv.kernel_info(role)) for role in sv.ROLES]
+    infos += [(KERNELS[role][0], bt.kernel_info(role == "binary_any")) for role in bt.ROLES]
+    infos += [(KERNELS.get(name, ("svgf_stencil.variance_runtime",))[0], sv.kernel_info(name))
+              for name in sv.INFO_KERNELS]
     for name, k in infos:
         say("2", f"{name}: {k['registers']} registers, {k['local_bytes']} bytes "
                  f"stack frame, {k['shared_bytes']} bytes shared a block of {k['threads']}; "

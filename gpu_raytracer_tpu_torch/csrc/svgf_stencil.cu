@@ -1,4 +1,4 @@
-// SVGF spatial stencils on NVIDIA Hopper (sm_90a), one thread per pixel.
+// SVGF spatial stencils on NVIDIA Hopper (sm_90a), one thread a pixel.
 //
 // Replaces the TPU kernels of gpu_raytracer_tpu/ops/pallas_svgf.py:
 //   sv_variance  <- `_variance_kernel` (the 7x7 bilateral moment estimate)
@@ -23,11 +23,11 @@
 // What bounds it on the card: a 1080p launch moves 21 planes of 2,073,600
 // floats (13 read, 8 written: 174 MB, 0.052 ms at 3.35 TB/s); the variance
 // pass does ~2,500 flops per pixel (49 taps with three exponentials each),
-// the a-trous pass ~450. The taps of neighbouring threads overlap, so they
-// are served by L1/L2 and both passes read global memory directly. The
-// variance pass keeps the simple design; the a-trous pass, six launches a
-// frame, drops the clamps and 64-bit index arithmetic in the image's
-// interior and reads each tap once (below).
+// the a-trous pass ~450: both are bound by instruction issue (their accurate
+// expf and IEEE divisions), not by bytes. The variance pass stages a tile
+// and its halo in shared memory, computing each pixel's luminances once;
+// the a-trous pass, six launches a frame, reads global memory directly,
+// with no clamps and 32-bit offsets in the image's interior (below).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -36,10 +36,6 @@
 #define SV_LUM_R 0.2126f
 #define SV_LUM_G 0.7152f
 #define SV_LUM_B 0.0722f
-
-struct SvCenter {
-  float n0, n1, n2, z, dz, l_d, l_i;
-};
 
 __device__ __forceinline__ float sv_lum(float r, float g, float b) {
   return SV_LUM_R * r + SV_LUM_G * g + SV_LUM_B * b;
@@ -69,72 +65,116 @@ __device__ __forceinline__ size_t sv_tap(int y, int x, int oy, int ox, int H, in
   return (size_t)yy * W + xx;
 }
 
-__device__ __forceinline__ SvCenter sv_center(const float* g, const float* d, size_t plane,
-                                              size_t p) {
-  SvCenter c;
-  c.n0 = g[p];
-  c.n1 = g[plane + p];
-  c.n2 = g[2 * plane + p];
-  c.z = g[3 * plane + p];
-  c.dz = g[4 * plane + p];
-  c.l_d = sv_lum(d[p], d[plane + p], d[2 * plane + p]);
-  c.l_i = sv_lum(d[3 * plane + p], d[4 * plane + p], d[5 * plane + p]);
-  return c;
+// ---- the variance pass: a shared-memory window, one thread a pixel ----
+//
+// A block stages its SV_VAR_TILE_X x SV_VAR_TILE_Y output tile and a
+// SV_VAR_R-pixel halo (38 x 22 pixels) in shared memory: per pixel the
+// normal, depth, the six colour channels and the direct and indirect
+// luminance, as three float4. Each window pixel is loaded at its clamped
+// index (the TPU kernel's edge padding, done once a pixel) and its two
+// luminances are computed once, with the same sv_lum (the same bits under
+// -fmad=false), instead of once by each of the 49 pixels whose footprint
+// holds it. The 7x7 loop is unrolled, its taps read the window at 32-bit
+// offsets with no clamp, and each tap's distance is a constant. The
+// exponent of the normal term is a template parameter: SV_POW_STATIC for
+// the default sigma_n = 16 (four products), SV_POW_RUNTIME for any other
+// sigma_n (sv_pow: repeated squaring, or exp/log for a non-integer).
+// Accumulation order, expf and the IEEE divisions are the parent kernel's
+// (ROADMAP C6), so the output is bit-equal to the per-tap global-load
+// kernel it replaces; the pass is bound by those instructions.
+constexpr int SV_VAR_TILE_X = 32;
+constexpr int SV_VAR_TILE_Y = 16;
+constexpr int SV_VAR_R = 3;  // the 7x7 footprint's reach
+constexpr int SV_VAR_WX = SV_VAR_TILE_X + 2 * SV_VAR_R;
+constexpr int SV_VAR_WY = SV_VAR_TILE_Y + 2 * SV_VAR_R;
+constexpr int SV_VAR_WIN = SV_VAR_WX * SV_VAR_WY;
+constexpr int SV_VAR_THREADS = SV_VAR_TILE_X * SV_VAR_TILE_Y;
+constexpr int SV_POW_STATIC = 16;  // ops/svgf_stencil.VARIANCE_STATIC_POW
+constexpr int SV_POW_RUNTIME = 0;
+
+// x**p as sv_pow, with a positive exponent IP known at compile time: the
+// same products in the same order.
+template <int IP>
+__device__ __forceinline__ float sv_pow_t(float x, float p, int ip) {
+  if constexpr (IP > 0) {
+    float acc = 0.0f, base = x;
+    bool have = false;
+#pragma unroll
+    for (int e = IP; e; e >>= 1) {
+      if (e & 1) {
+        acc = have ? acc * base : base;
+        have = true;
+      }
+      base = base * base;
+    }
+    return acc;
+  } else {
+    return sv_pow(x, p, ip);
+  }
 }
 
-// Edge-stopping weights of the tap at pixel q, offset (oy, ox)
-// (pallas_svgf `_weights`): normal, depth and luminance terms.
-__device__ __forceinline__ void sv_weights(const float* g, const float* d, size_t plane,
-                                           size_t q, int oy, int ox, const SvCenter& c,
-                                           float den_d, float den_i, float sigma_z,
-                                           float sigma_n, int ip, float* w_d, float* w_i) {
-  const float ndot = c.n0 * g[q] + c.n1 * g[plane + q] + c.n2 * g[2 * plane + q];
-  const float w_n = sv_pow(fmaxf(ndot, 0.0f), sigma_n, ip);
-  const float dist = sqrtf((float)(oy * oy + ox * ox));
-  const float w_z = expf(-fabsf(c.z - g[3 * plane + q]) / (sigma_z * fmaxf(c.dz * dist, 1e-8f)));
-  const float l_dq = sv_lum(d[q], d[plane + q], d[2 * plane + q]);
-  const float l_iq = sv_lum(d[3 * plane + q], d[4 * plane + q], d[5 * plane + q]);
-  const float w_l_d = expf(-fabsf(c.l_d - l_dq) / den_d);
-  const float w_l_i = expf(-fabsf(c.l_i - l_iq) / den_i);
-  const float base = w_n * w_z;
-  *w_d = base * w_l_d;
-  *w_i = base * w_l_i;
-}
-
-__global__ void sv_variance_kernel(const float* __restrict__ g, const float* __restrict__ d,
-                                   float* __restrict__ out, int H, int W, float sigma_z,
-                                   float sigma_n, int ip, float den) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= W || y >= H) return;
+template <int IP>
+__global__ void __launch_bounds__(SV_VAR_THREADS)
+sv_variance_kernel(const float* __restrict__ g, const float* __restrict__ d,
+                   float* __restrict__ out, int H, int W, float sigma_z, float sigma_n, int ip,
+                   float den) {
+  // Window pixel k: geo (normal xyz, depth), col (direct rgb, indirect r),
+  // lum (indirect g b, direct luminance, indirect luminance).
+  __shared__ float4 s_geo[SV_VAR_WIN], s_col[SV_VAR_WIN], s_lum[SV_VAR_WIN];
+  const int tid = threadIdx.y * SV_VAR_TILE_X + threadIdx.x;
+  const int x0 = blockIdx.x * SV_VAR_TILE_X, y0 = blockIdx.y * SV_VAR_TILE_Y;
   const size_t plane = (size_t)H * W;
+  for (int k = tid; k < SV_VAR_WIN; k += SV_VAR_THREADS) {
+    const int wy = k / SV_VAR_WX, wx = k - wy * SV_VAR_WX;
+    const size_t q = sv_tap(y0 - SV_VAR_R, x0 - SV_VAR_R, wy, wx, H, W);
+    const float c0 = __ldg(d + q), c1 = __ldg(d + plane + q), c2 = __ldg(d + 2 * plane + q);
+    const float c3 = __ldg(d + 3 * plane + q), c4 = __ldg(d + 4 * plane + q),
+                c5 = __ldg(d + 5 * plane + q);
+    s_geo[k] = make_float4(__ldg(g + q), __ldg(g + plane + q), __ldg(g + 2 * plane + q),
+                           __ldg(g + 3 * plane + q));
+    s_col[k] = make_float4(c0, c1, c2, c3);
+    s_lum[k] = make_float4(c4, c5, sv_lum(c0, c1, c2), sv_lum(c3, c4, c5));
+  }
+  __syncthreads();
+  const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
+  if (x >= W || y >= H) return;
   const size_t p = (size_t)y * W + x;
-  const SvCenter c = sv_center(g, d, plane, p);
+  const int cw = (threadIdx.y + SV_VAR_R) * SV_VAR_WX + threadIdx.x + SV_VAR_R;
+  const float4 cg = s_geo[cw], cl = s_lum[cw];
+  const float c_dz = __ldg(g + 4 * plane + p);
 
   float sum_w_d = 0.0f, sum_w_i = 0.0f;
   float m_d1 = 0.0f, m_d2 = 0.0f, m_i1 = 0.0f, m_i2 = 0.0f;
   float cd0 = 0.0f, cd1 = 0.0f, cd2 = 0.0f, ci0 = 0.0f, ci1 = 0.0f, ci2 = 0.0f;
-  for (int dy = -3; dy <= 3; ++dy) {
-    for (int dx = -3; dx <= 3; ++dx) {
-      const size_t q = sv_tap(y, x, dy, dx, H, W);
-      float w_d, w_i;
-      sv_weights(g, d, plane, q, dy, dx, c, den, den, sigma_z, sigma_n, ip, &w_d, &w_i);
-      const float t0 = d[q], t1 = d[plane + q], t2 = d[2 * plane + q];
-      const float t3 = d[3 * plane + q], t4 = d[4 * plane + q], t5 = d[5 * plane + q];
-      const float l_dq = sv_lum(t0, t1, t2);
-      const float l_iq = sv_lum(t3, t4, t5);
+#pragma unroll
+  for (int dy = -SV_VAR_R; dy <= SV_VAR_R; ++dy) {
+#pragma unroll
+    for (int dx = -SV_VAR_R; dx <= SV_VAR_R; ++dx) {
+      const int q = cw + dy * SV_VAR_WX + dx;
+      const float4 a = s_geo[q], b = s_col[q], c = s_lum[q];
+      // Edge-stopping weights (pallas_svgf `_weights`): normal, depth and
+      // luminance terms.
+      const float ndot = cg.x * a.x + cg.y * a.y + cg.z * a.z;
+      const float w_n = sv_pow_t<IP>(fmaxf(ndot, 0.0f), sigma_n, ip);
+      const float dist = sqrtf((float)(dy * dy + dx * dx));
+      const float w_z = expf(-fabsf(cg.w - a.w) / (sigma_z * fmaxf(c_dz * dist, 1e-8f)));
+      const float l_dq = c.z, l_iq = c.w;
+      const float w_l_d = expf(-fabsf(cl.z - l_dq) / den);
+      const float w_l_i = expf(-fabsf(cl.w - l_iq) / den);
+      const float base = w_n * w_z;
+      const float w_d = base * w_l_d, w_i = base * w_l_i;
       sum_w_d = sum_w_d + w_d;
       sum_w_i = sum_w_i + w_i;
       m_d1 = m_d1 + w_d * l_dq;
       m_d2 = m_d2 + w_d * l_dq * l_dq;
       m_i1 = m_i1 + w_i * l_iq;
       m_i2 = m_i2 + w_i * l_iq * l_iq;
-      cd0 = cd0 + w_d * t0;
-      ci0 = ci0 + w_i * t3;
-      cd1 = cd1 + w_d * t1;
-      ci1 = ci1 + w_i * t4;
-      cd2 = cd2 + w_d * t2;
-      ci2 = ci2 + w_i * t5;
+      cd0 = cd0 + w_d * b.x;
+      ci0 = ci0 + w_i * b.w;
+      cd1 = cd1 + w_d * b.y;
+      ci1 = ci1 + w_i * c.x;
+      cd2 = cd2 + w_d * b.z;
+      ci2 = ci2 + w_i * c.y;
     }
   }
   const float inv_d = 1.0f / fmaxf(sum_w_d, 1e-8f);
@@ -303,11 +343,19 @@ extern "C" int sv_variance(const float* guide, const float* dyn, float* out, int
                            float sigma_z, float sigma_n, int int_pow, float den,
                            void* stream) {
   if (H <= 0 || W <= 0) return 0;
-  const dim3 block(32, 8);  // sv_kernel_info's threads
-  sv_variance_kernel<<<sv_grid(H, W, block), block, 0, (cudaStream_t)stream>>>(
-      guide, dyn, out, H, W, sigma_z, sigma_n, int_pow, den);
+  const dim3 block(SV_VAR_TILE_X, SV_VAR_TILE_Y);
+  const dim3 grid = sv_grid(H, W, block);
+  if (int_pow == SV_POW_STATIC)
+    sv_variance_kernel<SV_POW_STATIC><<<grid, block, 0, (cudaStream_t)stream>>>(
+        guide, dyn, out, H, W, sigma_z, sigma_n, int_pow, den);
+  else
+    sv_variance_kernel<SV_POW_RUNTIME><<<grid, block, 0, (cudaStream_t)stream>>>(
+        guide, dyn, out, H, W, sigma_z, sigma_n, int_pow, den);
   return (int)cudaGetLastError();
 }
+
+// The exponent of sv_variance_kernel's static instance.
+extern "C" int sv_variance_static_pow() { return SV_POW_STATIC; }
 
 extern "C" int sv_atrous(const float* guide, const float* dyn, float* out, int H, int W,
                          int step, float sigma_z, float sigma_n, int int_pow, float sigma_l,
@@ -319,14 +367,17 @@ extern "C" int sv_atrous(const float* guide, const float* dyn, float* out, int H
   return (int)cudaGetLastError();
 }
 
-// What the compiler and the occupancy API report for a kernel: role 0 the
-// variance kernel, 1 the a-trous kernel. out = {registers a thread, local
+// What the compiler and the occupancy API report for a kernel: 0 the
+// variance kernel's static instance (sigma_n = 16), 1 the a-trous kernel, 2
+// the variance kernel's run-time instance. out = {registers a thread, local
 // (stack frame) bytes a thread, static shared bytes a block, threads a
 // block, blocks an SM, SMs}. Returns a cudaError_t.
-extern "C" int sv_kernel_info(int role, int* out) {
+extern "C" int sv_kernel_info(int kernel, int* out) {
   cudaFuncAttributes a;
-  const void* k = role == 0 ? (const void*)sv_variance_kernel : (const void*)sv_atrous_kernel;
-  const int threads = role == 0 ? 32 * 8 : SV_BLOCK_X * SV_BLOCK_Y;
+  const void* k = kernel == 0   ? (const void*)sv_variance_kernel<SV_POW_STATIC>
+                  : kernel == 1 ? (const void*)sv_atrous_kernel
+                                : (const void*)sv_variance_kernel<SV_POW_RUNTIME>;
+  const int threads = kernel == 1 ? SV_BLOCK_X * SV_BLOCK_Y : SV_VAR_THREADS;
   int per_sm = 0, dev = 0, sms = 0;
   cudaError_t err = cudaFuncGetAttributes(&a, k);
   if (err == cudaSuccess)

@@ -129,6 +129,7 @@ def load() -> ctypes.CDLL:
         fused_shade,
         shade_gather,
         stream_traverse,
+        svgf_stencil,
         wide_traverse,
     )
     from gpu_raytracer_tpu_torch.probes import block, dma, fetch, gang, prims, read
@@ -156,11 +157,15 @@ def load() -> ctypes.CDLL:
     lib.sv_atrous.argtypes = [vp, vp, vp, ci, ci, ci, cf, cf, ci, cf, vp]
     lib.sv_kernel_info.restype = ci
     lib.sv_kernel_info.argtypes = [ci, vp]
+    lib.sv_variance_static_pow.restype = ci
+    lib.sv_variance_static_pow.argtypes = []
     lib.bt_stack_depth.restype = ci
     lib.bt_stack_depth.argtypes = []
     lib.bt_trace.restype = ci
-    lib.bt_trace.argtypes = [ci, vp, vp, vp, ci, vp, vp, vp, ci, vp, vp, vp,
+    lib.bt_trace.argtypes = [ci, vp, vp, vp, ci, vp, vp, vp, ci, vp, vp, vp, vp,
                              vp, vp, vp, vp]
+    lib.bt_kernel_info.restype = ci
+    lib.bt_kernel_info.argtypes = [ci, vp]
     lib.fs_num_fields.restype = ci
     lib.fs_num_fields.argtypes = [ci]
     lib.fs_shade.restype = ci
@@ -199,6 +204,8 @@ def load() -> ctypes.CDLL:
     lib.pd_copy.argtypes = [ci, ci, ci, vp, ci, ci, ci, ci, ci, ci, vp, ci, ci, ci, vp, vp]
     if lib.bt_stack_depth() != binary_traverse.STACK_DEPTH:
         raise RuntimeError("binary_traverse.cu BT_STACK != STACK_DEPTH")
+    if lib.sv_variance_static_pow() != svgf_stencil.VARIANCE_STATIC_POW:
+        raise RuntimeError("svgf_stencil.cu SV_POW_STATIC != VARIANCE_STATIC_POW")
     if (lib.fs_num_fields(0) != len(fused_shade.IN_FIELDS)
             or lib.fs_num_fields(1) != len(fused_shade.OUT_FIELDS)):
         raise RuntimeError("fused_shade.cu field layout != IN_FIELDS/OUT_FIELDS")

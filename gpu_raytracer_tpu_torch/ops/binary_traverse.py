@@ -3,8 +3,10 @@
 Counterpart of the JAX package's `ops/pallas_traverse.py` (`_trace_pallas`,
 `trace_closest_pallas` / `trace_any_pallas`, TPU kernel `_kernel`). On a CUDA
 tensor `trace_closest` / `trace_any` launch the hand-written kernel in
-`csrc/binary_traverse.cu` (one thread per ray, a 48-entry stack per thread)
-and raise if they cannot; on a CPU tensor they run the plain PyTorch version,
+`csrc/binary_traverse.cu` (one load round a node, the next item in a
+register, a 48-entry stack per thread; the closest hit one thread a ray,
+the any hit on persistent warps that fetch rays from a counter) and raise
+if they cannot; on a CPU tensor they run the plain PyTorch version,
 `trace_plain`, which follows the TPU kernel's per-lane order step by step:
 
   * the root (node 0) pops first, with no pre-test;
@@ -65,6 +67,8 @@ OPS_PER_NODE = 2 * 26 + 1
 OPS_PER_TRI = 52
 OPS_PER_INST = 42
 last_work = {"nodes": 0, "triangles": 0, "instances": 0}
+# What `kernel_info` returns (csrc/binary_traverse.cu bt_kernel_info).
+INFO = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm", "sms")
 
 
 class BinaryTables(NamedTuple):
@@ -295,6 +299,10 @@ def _launch(any_hit: bool, tables: BinaryTables, ray_o, ray_d, t_max):
         u_out = torch.empty(R, dtype=torch.float32, device=dev)
         v_out = torch.empty(R, dtype=torch.float32, device=dev)
 
+    # The persistent warps' ray counter (any hit), zeroed on the stream by
+    # bt_trace.
+    next_ray = torch.empty(1, dtype=torch.int32, device=dev)
+
     def ptr(x):
         return None if x is None else ctypes.c_void_p(x.data_ptr())
 
@@ -302,14 +310,25 @@ def _launch(any_hit: bool, tables: BinaryTables, ray_o, ray_d, t_max):
     role = ROLES[int(any_hit)]
     err = lib.bt_trace(int(any_hit), ptr(tables.nodes), ptr(tables.insts),
                        ptr(tables.tris), tables.tris.shape[0], ptr(ray_o),
-                       ptr(ray_d), ptr(t_max), R, ptr(t_out), ptr(tri_out),
-                       ptr(inst_out), ptr(u_out), ptr(v_out), ptr(occ),
+                       ptr(ray_d), ptr(t_max), R, ptr(next_ray), ptr(t_out),
+                       ptr(tri_out), ptr(inst_out), ptr(u_out), ptr(v_out), ptr(occ),
                        ctypes.c_void_p(stream))
     _native.check(err, f"binary_traverse.{role}")
     launches[role] += 1
     if any_hit:
         return occ
     return Hit(t_out, tri_out, inst_out, u_out, v_out)
+
+
+def kernel_info(any_hit: bool) -> dict:
+    """What the compiler and the occupancy API report for the role's kernel
+    on the card (INFO: registers, stack frame and static shared bytes, the
+    threads of a block, the blocks an SM holds, the SMs)."""
+    lib = _native.load()
+    out = (ctypes.c_int * len(INFO))()
+    _native.check(lib.bt_kernel_info(int(any_hit), out),
+                  f"binary_traverse.kernel_info({ROLES[int(any_hit)]})")
+    return dict(zip(INFO, list(out)))
 
 
 def _dispatch(any_hit, tables, ray_o, ray_d, t_max):

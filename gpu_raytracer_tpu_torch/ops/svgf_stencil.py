@@ -3,8 +3,10 @@
 Counterpart of the JAX package's `ops/pallas_svgf.py` (`svgf_spatial_pallas`,
 TPU kernels `_variance_kernel` and `_atrous_kernel`). On CUDA tensors
 `svgf_variance` and `svgf_atrous` launch the hand-written kernels in
-`csrc/svgf_stencil.cu` (one thread per pixel; the a-trous kernel without
-clamps in the image's interior) and raise if they cannot; on CPU tensors
+`csrc/svgf_stencil.cu` (one thread a pixel; the variance kernel from a
+shared-memory window of its tile and halo, in two instances by the normal
+term's exponent; the a-trous kernel without clamps in the image's interior)
+and raise if they cannot; on CPU tensors
 they run `variance_plain` and `atrous_plain`, the same arithmetic as tensor
 ops, in the TPU kernels' tap sign (`img[y + oy]`), tap order and
 normalisations.
@@ -36,13 +38,22 @@ GAUSS_3 = ((1.0 / 16, 2.0 / 16, 1.0 / 16),
            (1.0 / 16, 2.0 / 16, 1.0 / 16))
 GUIDE_CHANNELS, DYN_CHANNELS = 5, 8
 ROLES = ("svgf_variance", "svgf_atrous")
+# The variance kernel's instance for sigma_n = 16 (the default) has the
+# exponent as a constant (csrc SV_POW_STATIC); any other sigma_n runs the
+# instance that takes it at run time.
+VARIANCE_STATIC_POW = 16
+VARIANCE_INSTANCES = ("static", "runtime")
 
 # Launch counts: a kernel's count rises only where the kernel is launched; a
-# plain version's only where the plain version runs.
+# plain version's only where the plain version runs. `variance_instances`
+# counts the variance launches by instance.
 launches = {r: 0 for r in ROLES}
 plain_calls = {r: 0 for r in ROLES}
-# What `kernel_info` returns (csrc/svgf_stencil.cu sv_kernel_info).
+variance_instances = {k: 0 for k in VARIANCE_INSTANCES}
+# What `kernel_info` returns (csrc/svgf_stencil.cu sv_kernel_info), and the
+# kernels it reports, in sv_kernel_info's order.
 INFO = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm", "sms")
+INFO_KERNELS = ("svgf_variance", "svgf_atrous", "svgf_variance_runtime")
 
 
 def pack_guide(normal, depth, dz) -> torch.Tensor:
@@ -230,17 +241,25 @@ def _launch(role: str, guide, dyn, step, sigma_z, sigma_n, sigma_l):
                             stream)
     _native.check(err, role)
     launches[role] += 1
+    if role == "svgf_variance":
+        variance_instances[variance_instance(sigma_n)] += 1
     return out
 
 
-def kernel_info(role: str) -> dict:
-    """What the compiler and the occupancy API report for a role's kernel on
-    the card (INFO: registers, stack frame and static shared bytes, the
-    threads of a block, the blocks an SM holds, the SMs)."""
+def variance_instance(sigma_n: float) -> str:
+    """The variance kernel's instance that runs for `sigma_n`."""
+    return "static" if int_power(sigma_n) == VARIANCE_STATIC_POW else "runtime"
+
+
+def kernel_info(kernel: str) -> dict:
+    """What the compiler and the occupancy API report for a kernel on the
+    card (one of INFO_KERNELS; INFO: registers, stack frame and static
+    shared bytes, the threads of a block, the blocks an SM holds, the
+    SMs)."""
     lib = _native.load()
     out = (ctypes.c_int * len(INFO))()
-    _native.check(lib.sv_kernel_info(ROLES.index(role), out),
-                  f"svgf_stencil.kernel_info({role})")
+    _native.check(lib.sv_kernel_info(INFO_KERNELS.index(kernel), out),
+                  f"svgf_stencil.kernel_info({kernel})")
     return dict(zip(INFO, list(out)))
 
 

@@ -314,6 +314,74 @@ def synthetic_mixed_tables(device):
     return tuple(x.to(device) for x in (mat, kc, lgt)), M
 
 
+def deep_binary_tables(depth: int = 80, seed: int = 0):
+    """Hand-made binary tables (node_mat, inst_mat, tri_mat: the (16, n)
+    column-major layout of binary_traverse.pack_tables, numpy float32) whose
+    BLAS is a chain `depth` interior nodes deep, deeper than the traversal's
+    48-entry stack: node 0 is an instance leaf (identity transform, RESTORE
+    pushed) over chain node 1; chain node k has a leaf child and the next
+    chain node, in an order drawn from `seed`. Four of five leaves lie past
+    the whole chain (z near 1000 - k, one triangle covering every ray of
+    `deep_binary_rays`), so a +z ray pushes them and its stack fills: the
+    pushes past 48 entries are dropped and their leaves lost. The other
+    leaves lie just before their next chain node (z = k + 0.5) and hold a
+    small triangle that some rays hit, which ends those rays' descent early.
+    The chain ends in a leaf at z = 1500."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_nodes = 2 + 2 * depth
+    node = np.zeros((16, n_nodes), np.float32)
+    tri = np.zeros((16, depth + 1), np.float32)
+    inst = np.zeros((16, 1), np.float32)
+    inst[0:12, 0] = np.eye(3, 4, dtype=np.float32).reshape(12)
+    inst[12, 0] = 1.0  # the BLAS root
+    node[12, 0], node[13, 0] = 0.0, -1.0  # instance leaf of instance 0
+
+    def leaf_box(z):
+        return [-2.0, -2.0, z - 0.01, 2.0, 2.0, z + 0.01]
+
+    chain = 1
+    for k in range(depth):
+        left = 2 + 2 * k
+        far = rng.random() < 0.8
+        if far:  # one triangle over every ray
+            z = 1000.0 - k
+            tri[0:9, k] = [-3.0, -3.0, z, 8.0, 0.0, 0.0, 0.0, 8.0, 0.0]
+        else:  # a small triangle just before the next chain node
+            z = k + 0.5
+            x, y = rng.uniform(-1.0, 0.7, 2)
+            tri[0:9, k] = [x, y, z, 0.3, 0.0, 0.0, 0.0, 0.3, 0.0]
+        leaf_first = rng.random() < 0.5
+        leaf, nxt = (left, left + 1) if leaf_first else (left + 1, left)
+        boxes = {leaf: leaf_box(z), nxt: [-2.0, -2.0, k + 1.0, 2.0, 2.0, 2000.0]}
+        node[0:6, chain] = boxes[left]
+        node[6:12, chain] = boxes[left + 1]
+        node[12, chain], node[13, chain] = left, 0.0
+        node[12, leaf], node[13, leaf] = k, 1.0
+        chain = nxt
+    tri[0:9, depth] = [-3.0, -3.0, 1500.0, 8.0, 0.0, 0.0, 0.0, 8.0, 0.0]
+    node[12, chain], node[13, chain] = depth, 1.0
+    return node, inst, tri
+
+
+def deep_binary_rays(n: int = 1024, seed: int = 0):
+    """(o, d, t_max) numpy float32 for `deep_binary_tables`: +z rays (tilted
+    by up to 0.002) from z = -1 over x, y in [-1, 1]; a tenth dead (t_max
+    0), a fifth with a finite t_max in (2, 1200)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    o = np.concatenate([rng.uniform(-1.0, 1.0, (n, 2)), np.full((n, 1), -1.0)], 1)
+    d = np.concatenate([rng.uniform(-0.002, 0.002, (n, 2)), np.ones((n, 1))], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = np.full(n, np.inf)
+    finite = rng.random(n) < 0.2
+    t_max[finite] = rng.uniform(2.0, 1200.0, int(finite.sum()))
+    t_max[rng.random(n) < 0.1] = 0.0
+    return o.astype(np.float32), d.astype(np.float32), t_max.astype(np.float32)
+
+
 def capture_wave(pt, wave: int, with_aovs: bool = False, route: str = "wide",
                  sample: int = 0, every: bool = False) -> dict:
     """Run the first `wave` pixels (tile order) of sample `sample` through

@@ -266,6 +266,59 @@ def test_render_two_level_kernels_match_plain(pt_tl):
     _render_pair(pt_tl)
 
 
+@pytest.mark.parametrize("sigma_n", [16.0, 8.0, 12.5])
+@pytest.mark.parametrize("H, W", [(13, 37), (1, 9), (9, 1), (1, 1), (40, 64), (70, 1920)])
+def test_variance_kernel_edges_match_plain(H, W, sigma_n):
+    """The variance kernel's shared-memory window at the image's border
+    (halo pixels at clamped indices), widths that are not a multiple of its
+    32 x 16 tile, 1-pixel rows and columns; each instance: the static one
+    (sigma_n 16) and the run-time one (an integer and a non-integer
+    exponent)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from gpu_raytracer_tpu_torch.ops import svgf_stencil as sv
+
+    guide, dyn = _stencil_images(H, W, 100 * H + W)
+    instance = "static" if sigma_n == 16.0 else "runtime"
+    before = sv.variance_instances[instance]
+    got = sv.svgf_variance(guide, dyn, 4.0, sigma_n, 10.0)
+    assert sv.variance_instances[instance] == before + 1
+    cs.compare_stencil(got, sv.variance_plain(guide, dyn, 4.0, sigma_n, 10.0))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_binary_kernel_drops_pushes_as_plain(any_hit):
+    """K8 on tables whose chain is deeper than the 48-entry stack: the
+    pushes past it are dropped as trace_plain drops them (the next item held
+    in a register counts as a stack slot)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from gpu_raytracer_tpu_torch.ops import binary_traverse as bt
+
+    tables = bt.make_tables(*(torch.as_tensor(x, device="cuda")
+                              for x in cs.deep_binary_tables()))
+    o, d, tm = (torch.as_tensor(x, device="cuda") for x in cs.deep_binary_rays(4096))
+    kernel = bt.trace_any if any_hit else bt.trace_closest
+    got, want = kernel(tables, o, d, tm), bt.trace_plain(any_hit, tables, o, d, tm)
+    if any_hit:
+        cs.compare_any(got, want)
+    else:
+        cs.compare_binary(got, want)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_binary_kernel_info(any_hit):
+    """The compiler and the occupancy API's report: 32 warps an SM (the
+    persistent any-hit grid's size), the 48-int stack in the frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from gpu_raytracer_tpu_torch.ops import binary_traverse as bt
+
+    info = bt.kernel_info(any_hit)
+    assert info["threads"] == 128 and info["blocks_per_sm"] >= 8
+    assert info["local_bytes"] >= 4 * bt.STACK_DEPTH and info["sms"] > 0
+
+
 @pytest.fixture(scope="module")
 def pt_small():
     """The Cornell stand-in: binary tables under both small-scene gates."""

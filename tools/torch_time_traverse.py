@@ -4,15 +4,20 @@ captured waves, in turns: chip_smoke.py phase 3's traversal rows alone.
 
     python3 tools/torch_time_traverse.py --trees .chip/parent . . .chip/parent
     python3 tools/torch_time_traverse.py --trees . WP_LEAF_MIN=1 WP_FETCH_MIN=1
+    python3 tools/torch_time_traverse.py --skip-wide --small --svgf \\
+        --trees .chip/parent . @fast_variance
     python3 tools/torch_time_traverse.py --device cpu --width 32 --height 32 \\
-        --subdiv 2 --grid 3 --grid-subdiv 1 --force-two-level
+        --subdiv 2 --grid 3 --grid-subdiv 1 --force-two-level --small --small-size 32
 
 A tree is a checkout of the repository (a directory that holds
 `gpu_raytracer_tpu_torch/`; `.` is this one; the parent commit unpacked with
 `git archive` into the git-ignored `.chip/` is another), or
 NAME=VALUE[,NAME=VALUE...]: this tree with those `constexpr` integer constants
 of its CUDA sources (csrc/*.cu, csrc/*.cuh; each name defined once) set so,
-copied under `.chip/variants/`. Trees run
+copied under `.chip/variants/`; or @NAME: this tree with the source patch
+NAME of `PATCHES` (`@fast_variance`: the variance kernel with `__expf` and
+the constant luminance denominator as a multiply by its reciprocal, an
+arithmetic that is not bit-equal and is timed, not shipped). Trees run
 in the order given, a tree named twice runs twice, each run in a process of
 its own that imports only that tree's package.
 
@@ -49,7 +54,20 @@ versions by the stencil bar, with their bounds (the images read and written
 once, or the plain version's pointwise operations), each kernel's report
 (`svgf_stencil.kernel_info`, where a tree has it) and the ptxas lines of the
 `sv_` kernels; the variance output of every tree must be bit-equal to the
-first tree's (the a-trous outputs' bit-equality is reported).
+first tree's (the a-trous outputs' bit-equality is reported; an @NAME
+tree's K5 outputs are measured against the plain versions, max |err| and
+whether the stencil bar holds, and not held to it). `--small` adds the
+small-scene kernels: K8 closest and any on the small cell's bounce-1 wave
+and its shadow wave (cornell_scene at --small-size, route (a), 6 bounces, as
+chip_smoke.py phase 3sm captures them), K8 on the route (b) waves of the
+same scene at --width x --height (3 bounces, the bounce-1 wave and its
+shadow wave), and K7 (the fused shade) on the route (a) bounce-1 wave; K8
+held to trace_plain by parity.compare_binary / compare_any, with its bound
+(phase 3sm's: tables, rays and outputs once over 3.35 TB/s, or the plain
+visits' operations, binary_traverse.OPS_PER_*, over 67 TFLOP/s), and the
+hits of every tree equal to the first tree's; K7 held by
+parity.compare_shade. `--skip-wide` leaves out the wide traversal roles
+(the merged cell is still built for --shade and --svgf).
 
 On the CPU (`--device cpu`, a tiny size) the kernels' places are taken by
 the plain versions: no build and no times; the visits and the utilisation
@@ -121,6 +139,11 @@ def parse(argv=None):
     p.add_argument("--stream", action="store_true", help="also K6 on the streamed cell")
     p.add_argument("--svgf", action="store_true",
                    help="also K5 on the merged cell's fifth denoised frame")
+    p.add_argument("--small", action="store_true",
+                   help="also K8 and K7 on the small cell's waves (routes (a) and (b))")
+    p.add_argument("--small-size", type=int, default=512, help="route (a) film side")
+    p.add_argument("--skip-wide", action="store_true",
+                   help="leave out the wide traversal roles")
     p.add_argument("--out", default=os.path.join(REPO, ".chip", "time_traverse", "result.json"))
     p.add_argument("--work", default=os.path.join(REPO, ".chip", "time_traverse"))
     p.add_argument("--worker", help=argparse.SUPPRESS)  # a tree's process
@@ -132,22 +155,59 @@ def parse(argv=None):
 # Trees
 # ---------------------------------------------------------------------------
 
-def resolve_tree(spec: str, made: dict) -> str:
-    """The directory of tree `spec` (a variant is made once a run)."""
-    if "=" not in spec:
-        path = os.path.abspath(os.path.join(REPO, spec))
-        if not os.path.isdir(os.path.join(path, PKG)):
-            raise SystemExit(f"{spec}: no {PKG}/ there")
-        return path
-    if spec in made:
-        return made[spec]
+# @NAME trees: (source file under csrc/, [(text, replacement)]), each text
+# found exactly once.
+PATCHES = {
+    "@fast_variance": ("svgf_stencil.cu", [
+        ("  const float c_dz = __ldg(g + 4 * plane + p);\n",
+         "  const float c_dz = __ldg(g + 4 * plane + p);\n  const float inv_den = 1.0f / den;\n"),
+        ("const float w_z = expf(-fabsf(cg.w - a.w)", "const float w_z = __expf(-fabsf(cg.w - a.w)"),
+        ("expf(-fabsf(cl.z - l_dq) / den)", "__expf(-fabsf(cl.z - l_dq) * inv_den)"),
+        ("expf(-fabsf(cl.w - l_iq) / den)", "__expf(-fabsf(cl.w - l_iq) * inv_den)"),
+    ]),
+}
+
+
+def copy_tree(spec: str) -> tuple:
+    """A fresh copy of this tree's package under .chip/variants/: (its
+    directory, {csrc file: text})."""
     path = os.path.join(REPO, ".chip", "variants", re.sub(r"[^\w.-]+", "_", spec))
     shutil.rmtree(path, ignore_errors=True)
     shutil.copytree(os.path.join(REPO, PKG), os.path.join(path, PKG),
                     ignore=shutil.ignore_patterns("__pycache__"))
     csrc = os.path.join(path, PKG, "csrc")
-    sources = {f: open(os.path.join(csrc, f)).read() for f in sorted(os.listdir(csrc))
-               if f.endswith((".cu", ".cuh"))}
+    return path, {f: open(os.path.join(csrc, f)).read() for f in sorted(os.listdir(csrc))
+                  if f.endswith((".cu", ".cuh"))}
+
+
+def write_sources(path: str, sources: dict) -> None:
+    for f, text in sources.items():
+        with open(os.path.join(path, PKG, "csrc", f), "w") as out:
+            out.write(text)
+
+
+def resolve_tree(spec: str, made: dict) -> str:
+    """The directory of tree `spec` (a variant is made once a run)."""
+    if spec in made:
+        return made[spec]
+    if spec.startswith("@"):
+        if spec not in PATCHES:
+            raise SystemExit(f"{spec}: no such patch (PATCHES: {sorted(PATCHES)})")
+        path, sources = copy_tree(spec)
+        f, edits = PATCHES[spec]
+        for old, new in edits:
+            if sources[f].count(old) != 1:
+                raise SystemExit(f"{spec}: {sources[f].count(old)} copies of {old!r} in {f}")
+            sources[f] = sources[f].replace(old, new)
+        write_sources(path, {f: sources[f]})
+        made[spec] = path
+        return path
+    if "=" not in spec:
+        path = os.path.abspath(os.path.join(REPO, spec))
+        if not os.path.isdir(os.path.join(path, PKG)):
+            raise SystemExit(f"{spec}: no {PKG}/ there")
+        return path
+    path, sources = copy_tree(spec)
     for item in spec.split(","):
         name, value = item.split("=", 1)
         found = 0
@@ -158,9 +218,7 @@ def resolve_tree(spec: str, made: dict) -> str:
         if found != 1:
             raise SystemExit(f"{spec}: {found} definitions of `constexpr int|unsigned {name}` "
                              f"in csrc/")
-    for f, text in sources.items():
-        with open(os.path.join(csrc, f), "w") as out:
-            out.write(text)
+    write_sources(path, sources)
     made[spec] = path
     return path
 
@@ -186,6 +244,8 @@ def capture(args) -> dict:
     cells = (("merged", lambda: procedural_scene(W, H, args.subdiv), 3),
              ("two_level", lambda: instanced_scene(W, H, grid=args.grid,
                                                    sphere_subdivisions=args.grid_subdiv), 4))
+    if args.skip_wide:  # the merged cell only where K3 or K5 need it
+        cells = cells[:1] if args.shade or args.svgf else ()
     for cell, make, bounces in cells:
         t0 = time.perf_counter()
         scene = make()
@@ -205,7 +265,7 @@ def capture(args) -> dict:
         info[cell] = {"triangles": scene.triangle_count(), "instances": len(scene.instances),
                       "table_bytes": 512 * (wide.nodes.shape[0] + wide.rows.shape[0]),
                       "max_stack": wide.max_stack, "build_s": time.perf_counter() - t0}
-        for role in ROLES:
+        for role in () if args.skip_wide else ROLES:
             (tables, o, d, tm), _ = got[role]
             waves[role + ("_tl" if tables.two_level else "")] = {
                 "kind": "wide", "role": role, "cell": cell, "tables": tuple(tables),
@@ -218,6 +278,10 @@ def capture(args) -> dict:
             waves.update(capture_svgf(pt))
     if args.stream:
         waves.update(capture_stream(W, H, dev))
+    if args.small:
+        small, facts = capture_small(args)
+        waves.update(small)
+        info.update(facts)
     if dev == "cuda":
         torch.cuda.synchronize()
     return waves, info
@@ -243,6 +307,43 @@ def capture_svgf(pt) -> dict:
             waves[key] = {"kind": "svgf", "role": role, "cell": "denoised", "args": args,
                           "kw": kw}
     return waves
+
+
+def capture_small(args) -> tuple:
+    """The small-scene kernels' inputs: K8 closest and any on the route (a)
+    bounce-1 wave and its shadow wave and K7 on that bounce-1 wave
+    (cornell_scene at --small-size, 6 bounces), K8 on the route (b)
+    bounce-1 wave and its shadow wave (the same tables, the film at --width
+    x --height, 3 bounces). Returns (waves, {cell: facts})."""
+    from gpu_raytracer_tpu_torch import CPUConfig, GPUConfig, parity
+    from gpu_raytracer_tpu_torch.integrators.pathtracer import Pathtracer
+    from gpu_raytracer_tpu_torch.scenes import cornell_scene
+
+    S, dev = args.small_size, args.device
+    t0 = time.perf_counter()
+    pt = Pathtracer(cornell_scene(S, S), CPUConfig(), GPUConfig(num_bounces=6), device=dev)
+    pt.init_device()
+    tables = pt.buffers["binary"]
+    facts = {"small": {"triangles": pt.scene.triangle_count(),
+                       "instances": len(pt.scene.instances),
+                       "table_bytes": nbytes(tables), "build_s": time.perf_counter() - t0}}
+    waves = {}
+    got = parity.capture_wave(pt, S * S, route="binary_shade", every=True)
+    for role in ("binary_closest", "binary_any"):
+        waves[role] = {"kind": "binary", "role": role, "cell": "small",
+                       "args": tuple(got[role][1][0])}
+    args_k7, kw = got["fused_shade"][1]
+    waves["fused_shade"] = {"kind": "fused", "cell": "small", "args": args_k7, "kw": kw}
+    pt_b = Pathtracer(cornell_scene(args.width, args.height), pt.cpu_config,
+                      GPUConfig(num_bounces=3), device=dev)
+    pt_b.buffers = pt.buffers
+    pt_b.reset_accumulation()
+    batch = min(pt.cpu_config.batch_size, args.width * args.height)
+    got = parity.capture_wave(pt_b, batch, route="binary", every=True)
+    for role in ("binary_closest", "binary_any"):
+        waves[role + "_b"] = {"kind": "binary", "role": role, "cell": "small_b",
+                              "args": tuple(got[role][1][0])}
+    return waves, facts
 
 
 def capture_stream(W, H, dev) -> dict:
@@ -294,6 +395,7 @@ def plain_results(waves: dict) -> dict:
     one-thread-a-ray schedule and the bound."""
     from gpu_raytracer_tpu_torch import probes
     from gpu_raytracer_tpu_torch.integrators.pathtracer import PLAIN
+    from gpu_raytracer_tpu_torch.ops import binary_traverse as bt
     from gpu_raytracer_tpu_torch.ops import stream_traverse as st
     from gpu_raytracer_tpu_torch.ops import wide_traverse as wt
 
@@ -313,6 +415,18 @@ def plain_results(waves: dict) -> dict:
         elif w["kind"] == "shade":
             res = PLAIN.shade(*w["args"], **w["kw"])
             facts = {"rays": int(w["args"][2]["t"].shape[0])}
+        elif w["kind"] == "binary":
+            res = getattr(PLAIN, w["role"])(*w["args"])
+            work = dict(bt.last_work)
+            ops = (work["nodes"] * bt.OPS_PER_NODE + work["triangles"] * bt.OPS_PER_TRI
+                   + work["instances"] * bt.OPS_PER_INST)
+            b_ms, b_by = probes.bound(nbytes(w["args"], res), ops)
+            tm = w["args"][3]
+            facts = {"rays": int(tm.shape[0]), "live": int((tm > 0).sum()), "visits": work,
+                     "bound_ms": b_ms, "bound_by": b_by}
+        elif w["kind"] == "fused":
+            res = PLAIN.fused_shade(*w["args"], **w["kw"])
+            facts = {"rays": int(w["args"][3].t.shape[0])}
         elif w["kind"] == "svgf":
             def fn(w=w):
                 return getattr(PLAIN, w["role"])(*w["args"], **w["kw"])
@@ -352,8 +466,14 @@ def compare(key: str, w: dict, got, plain) -> float:
             got, plain, parity.TRI_MATCH_COHERENT if w["role"] == "primary"
             else parity.TRI_MATCH_INCOHERENT, w["role"] == "primary",
             (wt.WideTables(*w["tables"]), o, d))
-    if w["kind"] == "shade":
+    if w["kind"] in ("shade", "fused"):
         return parity.compare_shade(got, plain)
+    if w["kind"] == "binary":
+        if w["role"] == "binary_any":
+            return parity.compare_any(got, plain)
+        from gpu_raytracer_tpu_torch.ops import binary_traverse as bt
+
+        return parity.compare_binary(bt.Hit(*got), plain)
     if w["kind"] == "svgf":
         return parity.compare_stencil(got, plain)
     if w["kind"] == "page" and not w["any"]:
@@ -404,6 +524,7 @@ def worker(args) -> int:
     from gpu_raytracer_tpu_torch import probes
     from gpu_raytracer_tpu_torch.integrators.pathtracer import DISPATCH
     from gpu_raytracer_tpu_torch.ops import _native
+    from gpu_raytracer_tpu_torch.ops import binary_traverse as bt
     from gpu_raytracer_tpu_torch.ops import stream_traverse as st
     from gpu_raytracer_tpu_torch.ops import svgf_stencil as sv
     from gpu_raytracer_tpu_torch.ops import wide_traverse as wt
@@ -447,6 +568,14 @@ def worker(args) -> int:
         elif w["kind"] == "shade":
             def fn(w=w):
                 return DISPATCH.shade(*w["args"], **w["kw"])
+        elif w["kind"] == "fused":
+            def fn(w=w):
+                return DISPATCH.fused_shade(*w["args"], **w["kw"])
+        elif w["kind"] == "binary":
+            def fn(w=w):
+                return getattr(DISPATCH, w["role"])(*w["args"])
+            if cuda and hasattr(bt, "kernel_info"):
+                rep["info"][key] = bt.kernel_info(w["role"] == "binary_any")
         elif w["kind"] == "svgf":
             def fn(w=w):
                 return getattr(DISPATCH, w["role"])(*w["args"], **w["kw"])
@@ -487,7 +616,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import torch
 
-    from gpu_raytracer_tpu_torch import probes
+    from gpu_raytracer_tpu_torch import parity, probes
     from gpu_raytracer_tpu_torch.ops import _native
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -523,22 +652,36 @@ def main() -> int:
         got = torch.load(result, weights_only=False)
         rep = got["rep"]
         # The traversal kernels: wt_* (and st_* of a tree before the paged
-        # passes ran on the walk); the stencils: sv_*.
-        rep["ptxas"] = ({k: v for prefix in ("wt_", "st_", "sv_")
+        # passes ran on the walk), bt_*; the stencils: sv_*.
+        rep["ptxas"] = ({k: v for prefix in ("wt_", "st_", "bt_", "sv_")
                          for k, v in _native.ptxas_report(rep["ptxas"], prefix).items()}
                         if rep["ptxas"] else {})
         errs = {}
         for key, w in waves.items():
             out = got["outs"][key]
-            errs[key] = compare(key, w, out, plain[key][0])
+            patched = spec.startswith("@")
+            if w["kind"] == "svgf" and patched:  # measured, not held to the bar
+                want = plain[key][0]
+                errs[key] = (out - want).abs().max().item()
+                tol = parity.STENCIL_TOL
+                rep.setdefault("stencil_bar_holds", {})[key] = not bool(
+                    ((out - want).abs() > tol + tol * want.abs()).any())
+            else:
+                errs[key] = compare(key, w, out, plain[key][0])
             if w["kind"] == "svgf":
                 # The first tree's output is the yardstick: the variance
                 # kernel must not change by a bit.
                 first = first_outs.setdefault(key, out)
                 same = bool(torch.equal(out, first))
                 rep.setdefault("bit_equal_first_tree", {})[key] = same
-                if w["role"] == "svgf_variance" and not same:
+                if w["role"] == "svgf_variance" and not same and not patched:
                     raise AssertionError(f"tree {spec}: svgf_variance differs from tree "
+                                         f"{trees[0][0]}'s")
+            if w["kind"] == "binary":  # every tree's hits are the first tree's
+                first = first_outs.setdefault(key, out)
+                pairs = zip(out, first) if isinstance(out, tuple) else ((out, first),)
+                if not all(torch.equal(a, b) for a, b in pairs):
+                    raise AssertionError(f"tree {spec}: {key} hits differ from tree "
                                          f"{trees[0][0]}'s")
         rep["max_abs_err"] = errs
         rep["seconds"] = time.perf_counter() - t0
@@ -553,6 +696,10 @@ def main() -> int:
                   f"{info['blocks_per_sm'] * info['threads'] // 32} warps an SM", flush=True)
         for key, stats in rep["stats"].items():
             print(f"[time_traverse]   {key} instrumented: {json.dumps(stats)}", flush=True)
+        if rep.get("stencil_bar_holds"):
+            print(f"[time_traverse]   K5 max |err| against the plain versions: "
+                  f"{json.dumps({k: errs[k] for k in rep['stencil_bar_holds']})}; "
+                  f"within the stencil bar: {json.dumps(rep['stencil_bar_holds'])}", flush=True)
         if rep.get("bit_equal_first_tree"):
             print(f"[time_traverse]   K5 outputs bit-equal to tree {trees[0][0]}'s: "
                   f"{json.dumps(rep['bit_equal_first_tree'])}", flush=True)
