@@ -10,8 +10,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
   2. build: compile gpu_raytracer_tpu_torch/csrc/*.cu with nvcc (timed),
      while the scenes below are built; the ptxas report (registers, spills,
      stack frame) and the occupancy API's blocks an SM of each wide, paged
-     and binary traversal kernel and of the SVGF kernels (the variance
-     kernel's two instances).
+     and binary traversal kernel, of the SVGF kernels (the variance
+     kernel's two instances) and of the fused shade.
   scene: the procedural 1920x1080 configuration (cube room, area light,
      three subdivision-6 icospheres, 245,774 triangles, merged tables) and
      the instanced one (441 instances of one subdivision-4 icosphere, room,
@@ -44,8 +44,10 @@ Phases (one line each; any failure raises and the exit code is nonzero):
      demod on a captured full wave of the denoised path.
   3sm. the small-scene kernels: binary closest hit (bounce 1), binary any
      hit (its shadow wave) and the fused shade (bounce 1; and every BSDF on
-     synthetic mixed-material tables) against their plain versions on a
-     captured full 262,144-ray wave of the 512x512 slice, timed, with bounds;
+     synthetic mixed-material tables, timed too; bounce 4 of the same
+     sample, most lanes dead; bounce 1 with every lane dead) against their
+     plain versions on a captured full 262,144-ray wave of the 512x512
+     slice, timed, with bounds;
      and K8 closest and any on hand-made tables 80 nodes deep
      (parity.deep_binary_tables), where the 48-entry stack drops pushes.
   3st. the paged-table kernels: resident and page passes, closest and any,
@@ -372,7 +374,8 @@ def phase_small_kernels(pt, results: dict) -> None:
     """Phase 3sm on the small scene's full 512x512 wave (route (a)): the
     binary closest hit on bounce 1, the binary any hit on its shadow wave,
     and the fused shade on bounce 1 (and on synthetic mixed-material tables,
-    every BSDF), each against its plain version, timed, with bounds."""
+    every BSDF; on bounce 4; on bounce 1 with every lane dead), each against
+    its plain version, timed, with bounds."""
     import torch
 
     from gpu_raytracer_tpu_torch import parity
@@ -415,40 +418,50 @@ def phase_small_kernels(pt, results: dict) -> None:
                f"{depth} interior nodes deep (pushes past the 48-entry stack dropped; max "
                f"|dt| {err:.3g})")
 
-    args, kw = got["fused_shade"][1]
+    calls = got["fused_shade"]
+    if len(calls) < 5:
+        raise RuntimeError(f"the small cell's sample ended after {len(calls)} bounces")
+    args, kw = calls[1]
     err = parity.compare_shade(DISPATCH.fused_shade(*args, **kw),
                                PLAIN.fused_shade(*args, **kw))
     # Every BSDF: the mixed tables' materials on the scene's instances.
-    tables = list(args[0])
-    (mat, kc, _), M = parity.synthetic_mixed_tables(pt.device)
-    inst_a = tables[2].clone()
-    inst_a[12] = (torch.arange(inst_a.shape[1], device=pt.device) % M).float()
-    tables[2], tables[4], tables[5] = inst_a, mat, kc
-    mixed = (tuple(tables),) + args[1:]
+    mixed = parity.mixed_fused_args(args)
     err = max(err, parity.compare_shade(DISPATCH.fused_shade(*mixed, **kw),
                                         PLAIN.fused_shade(*mixed, **kw)))
+    # Bounce 4 of the same sample (most lanes dead), and bounce 1 with every
+    # lane dead; the lanes whose masks differ from the plain version's are
+    # counted (compare_shade allows 0.1%).
+    late, late_kw = calls[4]
+    dead = list(args)
+    dead[7] = torch.zeros_like(dead[7])
+    report = []
+    for name, (a, k) in (("bounce 4", (late, late_kw)), ("all dead", (tuple(dead), kw))):
+        ka, pa = DISPATCH.fused_shade(*a, **k), PLAIN.fused_shade(*a, **k)
+        err = max(err, parity.compare_shade(ka, pa))
+        differ = ((ka["alive"] != pa["alive"]) | (ka["prev_allow_nee"] != pa["prev_allow_nee"])
+                  | ((ka["shadow_tmax"] > 0) != (pa["shadow_tmax"] > 0)))
+        report.append(f"{name} ({int(a[7].sum())} live, masks differ on "
+                      f"{int(differ.sum())} lanes)")
+    if (bool(ka["alive"].any()) or bool((ka["shadow_tmax"] != 0).any())
+            or not torch.equal(ka["ray_o"], dead[4]) or not torch.equal(ka["ray_d"], dead[5])
+            or bool((ka["radiance_add"] != 0).any())):
+        raise AssertionError("fused_shade: the all-dead wave left a lane alive, traced a "
+                             "shadow ray, added radiance or moved a ray")
+    mixed_ms = sorted(cuda_ms(lambda: DISPATCH.fused_shade(*mixed, **kw), 10, 7))[3]
     ms, plain_ms, text = time_pair(lambda: DISPATCH.fused_shade(*args, **kw),
                                    lambda: PLAIN.fused_shade(*args, **kw))
     ops = pointwise_ops(lambda: PLAIN.fused_shade(*args, **kw))
-    tables, sampler, params, hit, pixel_index = args[0], args[1], args[2], args[3], args[10]
-    lanes = (hit, *args[4:10])
-    # Bytes the kernel reads: the noise rows this wave addresses (one row
-    # per draw site on the PMJ table and noise tile of a block, in both
-    # planes) and the pixel ids as the int32 the wrapper passes.
-    tiles = torch.unique(fs.block_tiles(pixel_index, pt.width)).tolist()
-    rows = {int(params[16 + 4 * s + 2]) * 16 + tile
-            for s in range(len(fs.SITES)) if params[16 + 4 * s + 3] > 0
-            for tile in tiles}
-    row_bytes = 2 * len(rows) * sampler["noise_x_rows"][0].numel() * 4
     out = DISPATCH.fused_shade(*args, **kw)
-    b_ms, b_by = bound(nbytes(tables, lanes, out) + row_bytes + 4 * pixel_index.numel(),
-                       ops)
+    b_ms, b_by = bound(fs.moved_bytes(args, out), ops)
     results["fused_shade"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    say("3sm", f"fused_shade: parity ok on {hit.t.shape[0]} bounce-1 lanes and on "
-               f"all 4 BSDFs (max abs err {err:.3g}); {text}; {ops} pointwise ops of "
-               f"the plain version; {len(rows)} of {sampler['noise_x_rows'].shape[0]} "
-               f"noise rows a plane read; bound {b_ms:.4f} ms ({b_by})")
+    hit, alive = args[3], args[7]
+    say("3sm", f"fused_shade: parity ok on {hit.t.shape[0]} bounce-1 lanes "
+               f"({int(alive.sum())} live), on all 4 BSDFs, on {' and '.join(report)} "
+               f"(max abs err {err:.3g}); "
+               f"{text}; the mixed-BSDF wave {mixed_ms:.4f} ms; {ops} pointwise ops of "
+               f"the plain version; bound {b_ms:.4f} ms ({b_by}: "
+               f"{fs.moved_bytes(args, out)} bytes)")
 
 
 def phase_stream_kernels(pt, merged, results: dict) -> None:
@@ -1141,7 +1154,7 @@ def main() -> int:
              f"sources in {info['seconds']:.2f} s")
     for ln in regs:
         say("2", f"ptxas: {ln}")
-    for prefix in ("wt_", "bt_", "sv_"):
+    for prefix in ("wt_", "bt_", "sv_", "fs_"):
         for name, lines in _native.ptxas_report(info["log"], prefix).items():
             say("2", f"ptxas {name}: {'; '.join(lines)}")
     infos = [(role + ("_tl" if two_level else ""), wt.kernel_info(mode, two_level))
@@ -1152,6 +1165,7 @@ def main() -> int:
     infos += [(KERNELS[role][0], bt.kernel_info(role == "binary_any")) for role in bt.ROLES]
     infos += [(KERNELS.get(name, ("svgf_stencil.variance_runtime",))[0], sv.kernel_info(name))
               for name in sv.INFO_KERNELS]
+    infos += [(KERNELS["fused_shade"][0], fs.kernel_info())]
     for name, k in infos:
         say("2", f"{name}: {k['registers']} registers, {k['local_bytes']} bytes "
                  f"stack frame, {k['shared_bytes']} bytes shared a block of {k['threads']}; "

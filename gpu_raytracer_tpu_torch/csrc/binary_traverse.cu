@@ -56,6 +56,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "kernel_report.cuh"
+
 #define BT_STACK 48
 #define BT_LEAF 4
 #define BT_RESTORE (-1)
@@ -365,23 +367,9 @@ extern "C" int bt_trace(int any_hit, const float* nodes, const float* insts, con
 
 extern "C" int bt_stack_depth() { return BT_STACK; }
 
-// What the compiler and the occupancy API report for the kernel of a role:
-// out = {registers a thread, local (stack frame) bytes a thread, static
-// shared bytes a block, threads a block, blocks an SM, SMs}. Returns a
-// cudaError_t.
+// What the compiler and the occupancy API report for the kernel of a role
+// (kernel_report). Returns a cudaError_t.
 extern "C" int bt_kernel_info(int any_hit, int* out) {
   const void* k = any_hit ? (const void*)bt_walk_kernel<true> : (const void*)bt_walk_kernel<false>;
-  int per_sm = 0, sms = 0;
-  int err = any_hit ? bt_grid<true>(&per_sm, &sms) : bt_grid<false>(&per_sm, &sms);
-  if (err != 0) return err;
-  cudaFuncAttributes a;
-  err = (int)cudaFuncGetAttributes(&a, k);
-  if (err != 0) return err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes;
-  out[3] = BT_THREADS;
-  out[4] = per_sm;
-  out[5] = sms;
-  return 0;
+  return kernel_report(k, BT_THREADS, out);
 }

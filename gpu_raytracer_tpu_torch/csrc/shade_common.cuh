@@ -2,10 +2,16 @@
 // csrc/shade_gather.cu (K3, gathered lanes) and csrc/fused_shade.cu (K7,
 // whole bounce): the vector and microfacet functions, the per-lane material
 // constants (`Lane`, JAX pallas_shade.make_lane_materials), the NEE eval of
-// the four BSDFs (`nee_eval`, nee_eval_dispatch) and the BSDF sample
-// (`bsdf_sample`, bsdf_sample_dispatch). Kulla-Conty curves are per-material
-// degree-7 polynomials evaluated with fmaf (the sources build with
-// -fmad=false, so every other a*b+c rounds twice, as in PyTorch).
+// the four BSDFs (`nee_eval_of`, nee_eval_dispatch) and the BSDF sample
+// (`bsdf_sample_of`, bsdf_sample_dispatch). Kulla-Conty curves are
+// per-material degree-7 polynomials evaluated with fmaf (the sources build
+// with -fmad=false, so every other a*b+c rounds twice, as in PyTorch).
+//
+// The BSDF functions take any lane type with Lane's fields and its three
+// curve members (e_same, e_other, e_cond): K3 passes `Lane` (the curves as
+// 32 floats), K7 its own `FsLane` (the curves as value-selected registers,
+// loaded only on dielectric and conductor lanes). A curve is evaluated
+// inside the lobe that reads it.
 
 #pragma once
 
@@ -153,9 +159,19 @@ struct Lane {  // pallas_shade.make_lane_materials
   float alpha, eta_d, ratio_d, E_avg_same, E_avg_inv, E_avg_c;
   V3 eta3, k3, fms;
   float kc[32];
+  // Dielectric E(cos) on the side the ray enters from (kc[0:8] entering,
+  // else kc[8:16]), on the other side, and the conductor's (kc[16:24]).
+  __device__ __forceinline__ float e_same(float x) const {
+    return clip01(poly8(entering ? kc : kc + 8, x));
+  }
+  __device__ __forceinline__ float e_other(float x) const {
+    return clip01(poly8(!entering ? kc : kc + 8, x));
+  }
+  __device__ __forceinline__ float e_cond(float x) const { return clip01(poly8(kc + 16, x)); }
 };
 
-__device__ __forceinline__ void plastic_at(const Lane& m, V3 i, V3 o, V3 h, V3* val, float* pdf) {
+template <class M>
+__device__ __forceinline__ void plastic_at(const M& m, V3 i, V3 o, V3 h, V3* val, float* pdf) {
   const float internal = 1.0f - (1.0f - (SG_PLASTIC_IOR - 1.0f) / (4.08567f + 1.00071f * SG_PLASTIC_IOR)) *
                                     SG_PLASTIC_ETA * SG_PLASTIC_ETA;
   const float i_dot_m = fabsf(dot3(i, h));
@@ -176,7 +192,8 @@ __device__ __forceinline__ void plastic_at(const Lane& m, V3 i, V3 o, V3 h, V3* 
   *pdf = pdf_dif + F_i * (pdf_spec - pdf_dif);
 }
 
-__device__ __forceinline__ void dielectric_at(const Lane& m, V3 i, V3 o, V3 h, bool reflected, float E_i,
+template <class M>
+__device__ __forceinline__ void dielectric_at(const M& m, V3 i, V3 o, V3 h, bool reflected, float E_i,
                                               float E_o_r, float E_o_t, float* val, float* pdf) {
   const float eta = m.eta_d;
   const float i_dot_m = fabsf(dot3(i, h));
@@ -203,7 +220,8 @@ __device__ __forceinline__ void dielectric_at(const Lane& m, V3 i, V3 o, V3 h, b
   *pdf = pm + E_i * (ps - pm);
 }
 
-__device__ __forceinline__ void conductor_at(const Lane& m, V3 i, V3 o, V3 h, float E_i, float E_o, V3* val,
+template <class M>
+__device__ __forceinline__ void conductor_at(const M& m, V3 i, V3 o, V3 h, float E_i, float E_o, V3* val,
                                              float* pdf, float* o_dot_m) {
   const float odm = dot3(o, h);
   const float D = ggx_D(h, m.alpha);
@@ -222,14 +240,8 @@ __device__ __forceinline__ void conductor_at(const Lane& m, V3 i, V3 o, V3 h, fl
   *o_dot_m = odm;
 }
 
-// Dielectric E(cos) curve for the `enter` side (kc[0:8]) or the other (kc[8:16]).
-__device__ __forceinline__ float e_diel(const Lane& m, bool enter_side, float x) {
-  return clip01(poly8(enter_side ? m.kc : m.kc + 8, x));
-}
-
-static __device__ void nee_eval(const Lane& m, V3 wi, V3 lo, V3* ev, float* ev_pdf, bool* ev_ok) {
-  const float E_i_d = e_diel(m, m.entering, wi.z);
-  const float E_i_c = clip01(poly8(m.kc + 16, wi.z));
+template <class M>
+__device__ __forceinline__ void nee_eval_of(const M& m, V3 wi, V3 lo, V3* ev, float* ev_pdf, bool* ev_ok) {
   // diffuse
   const float val_dif = fmaxf(lo.z, 0.0f) * (1.0f / SG_PI);
   V3 e = v3(val_dif, val_dif, val_dif);
@@ -252,8 +264,9 @@ static __device__ void nee_eval(const Lane& m, V3 wi, V3 lo, V3* ev, float* ev_p
     V3 dm = sel3(refl, h, tm);
     const float fl = dm.z >= 0.0f ? 1.0f : -1.0f;
     dm = V3{dm.x * fl, dm.y * fl, dm.z * fl};
-    const float E_o_r = e_diel(m, m.entering, fabsf(lo.z));
-    const float E_o_t = e_diel(m, !m.entering, fabsf(lo.z));
+    const float E_i_d = m.e_same(wi.z);
+    const float E_o_r = m.e_same(fabsf(lo.z));
+    const float E_o_t = m.e_other(fabsf(lo.z));
     float dv, dp;
     dielectric_at(m, wi, lo, dm, refl, E_i_d, E_o_r, E_o_t, &dv, &dp);
     e = v3(dv, dv, dv);
@@ -262,7 +275,8 @@ static __device__ void nee_eval(const Lane& m, V3 wi, V3 lo, V3* ev, float* ev_p
   }
   // conductor
   if (m.is_cond) {
-    const float E_o_c = clip01(poly8(m.kc + 16, fabsf(lo.z)));
+    const float E_i_c = m.e_cond(wi.z);
+    const float E_o_c = m.e_cond(fabsf(lo.z));
     V3 cv;
     float cp, odm;
     conductor_at(m, wi, lo, h, E_i_c, E_o_c, &cv, &cp, &odm);
@@ -275,10 +289,9 @@ static __device__ void nee_eval(const Lane& m, V3 wi, V3 lo, V3* ev, float* ev_p
   *ev_ok = ok;
 }
 
-static __device__ void bsdf_sample(const Lane& m, V3 wi, float f0, float f1, float r3, float r4, V3* out, float* pdf_out,
-                            V3* mul_out, bool* valid_out) {
-  const float E_i_d = e_diel(m, m.entering, wi.z);
-  const float E_i_c = clip01(poly8(m.kc + 16, wi.z));
+template <class M>
+__device__ __forceinline__ void bsdf_sample_of(const M& m, V3 wi, float f0, float f1, float r3, float r4, V3* out,
+                                               float* pdf_out, V3* mul_out, bool* valid_out) {
   // diffuse: cosine hemisphere
   float sx, sy;
   sample_disk(r3, r4, &sx, &sy);
@@ -319,14 +332,15 @@ static __device__ void bsdf_sample(const Lane& m, V3 wi, float f0, float f1, flo
       const V3 mh = halfway(wi, mo);
       const V3 tt = norm3t(V3{m.eta_d * wi.x + sx, m.eta_d * wi.y + sy, m.eta_d * wi.z + moz});
       const V3 mm = sel3(refl_m, mh, tt);
+      const float E_i_d = m.e_same(wi.z);
       const bool single = f0 < E_i_d;
       const V3 go = sel3(single, s1, mo);
       V3 gm = sel3(single, vm, mm);
       const float fl = gm.z >= 0.0f ? 1.0f : -1.0f;
       gm = V3{gm.x * fl, gm.y * fl, gm.z * fl};
       const bool refl = single ? refl_s : refl_m;
-      const float E_o_rs = e_diel(m, m.entering, fabsf(go.z));
-      const float E_o_ts = e_diel(m, !m.entering, fabsf(go.z));
+      const float E_o_rs = m.e_same(fabsf(go.z));
+      const float E_o_ts = m.e_other(fabsf(go.z));
       float dv, dp;
       dielectric_at(m, wi, go, gm, refl, E_i_d, E_o_rs, E_o_ts, &dv, &dp);
       const bool hemi_ok = refl == (go.z >= 0.0f);
@@ -337,10 +351,11 @@ static __device__ void bsdf_sample(const Lane& m, V3 wi, float f0, float f1, flo
       valid = hemi_ok && pdf_ok(dp);
     }
     if (m.is_cond) {
+      const float E_i_c = m.e_cond(wi.z);
       const bool single_c = f0 < E_i_c;
       const V3 co = sel3(single_c, reflect3(wi, vm), s);
       const V3 cm = sel3(single_c, vm, halfway(wi, s));
-      const float E_o_cs = clip01(poly8(m.kc + 16, fabsf(co.z)));
+      const float E_o_cs = m.e_cond(fabsf(co.z));
       V3 cv;
       float cp, odm;
       conductor_at(m, wi, co, cm, E_i_c, E_o_cs, &cv, &cp, &odm);
@@ -355,6 +370,15 @@ static __device__ void bsdf_sample(const Lane& m, V3 wi, float f0, float f1, flo
   *pdf_out = pdf;
   *mul_out = mul;
   *valid_out = valid;
+}
+
+// K3's calls, compiled as functions of their own as before the templates.
+static __device__ void nee_eval(const Lane& m, V3 wi, V3 lo, V3* ev, float* ev_pdf, bool* ev_ok) {
+  nee_eval_of(m, wi, lo, ev, ev_pdf, ev_ok);
+}
+static __device__ void bsdf_sample(const Lane& m, V3 wi, float f0, float f1, float r3, float r4, V3* out,
+                                   float* pdf_out, V3* mul_out, bool* valid_out) {
+  bsdf_sample_of(m, wi, f0, f1, r3, r4, out, pdf_out, mul_out, valid_out);
 }
 
 __device__ __forceinline__ V3 ld3(const float* p, int i) { return V3{p[3 * i], p[3 * i + 1], p[3 * i + 2]}; }

@@ -105,12 +105,12 @@ extern "C" int st_page(int any_hit, const float* pages, int page_rows,
 }
 
 // What the compiler and the occupancy API report for a pass's kernel (the
-// uninstrumented one; page 0 resident, 1 page): wt_info_of's six numbers.
+// uninstrumented one; page 0 resident, 1 page): kernel_report's six numbers.
 extern "C" int st_kernel_info(int page, int any_hit, int* out) {
   switch ((page ? 2 : 0) + (any_hit ? 1 : 0)) {
-    case 0: return wt_info_of(wt_walk_entry<WT_CLOSEST, WL_RESIDENT, false>(), WP_THREADS, out);
-    case 1: return wt_info_of(wt_walk_entry<WT_ANY, WL_RESIDENT, false>(), WP_THREADS, out);
-    case 2: return wt_info_of(wt_walk_entry<WT_CLOSEST, WL_PAGE, false>(), WP_THREADS, out);
-    default: return wt_info_of(wt_walk_entry<WT_ANY, WL_PAGE, false>(), WP_THREADS, out);
+    case 0: return kernel_report((const void*)wt_walk_entry<WT_CLOSEST, WL_RESIDENT, false>(), WP_THREADS, out);
+    case 1: return kernel_report((const void*)wt_walk_entry<WT_ANY, WL_RESIDENT, false>(), WP_THREADS, out);
+    case 2: return kernel_report((const void*)wt_walk_entry<WT_CLOSEST, WL_PAGE, false>(), WP_THREADS, out);
+    default: return kernel_report((const void*)wt_walk_entry<WT_ANY, WL_PAGE, false>(), WP_THREADS, out);
   }
 }

@@ -33,6 +33,8 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "kernel_report.cuh"
+
 #define SV_LUM_R 0.2126f
 #define SV_LUM_G 0.7152f
 #define SV_LUM_B 0.0722f
@@ -367,29 +369,13 @@ extern "C" int sv_atrous(const float* guide, const float* dyn, float* out, int H
   return (int)cudaGetLastError();
 }
 
-// What the compiler and the occupancy API report for a kernel: 0 the
-// variance kernel's static instance (sigma_n = 16), 1 the a-trous kernel, 2
-// the variance kernel's run-time instance. out = {registers a thread, local
-// (stack frame) bytes a thread, static shared bytes a block, threads a
-// block, blocks an SM, SMs}. Returns a cudaError_t.
+// What the compiler and the occupancy API report for a kernel
+// (kernel_report): 0 the variance kernel's static instance (sigma_n = 16),
+// 1 the a-trous kernel, 2 the variance kernel's run-time instance. Returns
+// a cudaError_t.
 extern "C" int sv_kernel_info(int kernel, int* out) {
-  cudaFuncAttributes a;
   const void* k = kernel == 0   ? (const void*)sv_variance_kernel<SV_POW_STATIC>
                   : kernel == 1 ? (const void*)sv_atrous_kernel
                                 : (const void*)sv_variance_kernel<SV_POW_RUNTIME>;
-  const int threads = kernel == 1 ? SV_BLOCK_X * SV_BLOCK_Y : SV_VAR_THREADS;
-  int per_sm = 0, dev = 0, sms = 0;
-  cudaError_t err = cudaFuncGetAttributes(&a, k);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, threads, 0);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes;
-  out[3] = threads;
-  out[4] = per_sm;
-  out[5] = sms;
-  return 0;
+  return kernel_report(k, kernel == 1 ? SV_BLOCK_X * SV_BLOCK_Y : SV_VAR_THREADS, out);
 }

@@ -99,15 +99,15 @@ extern "C" int wt_trace(int mode, int two_level, const float* nodes, const float
 }
 
 // What the compiler and the occupancy API report for the kernel of a role
-// (the uninstrumented one; wt_info_of). Returns a cudaError_t.
+// (the uninstrumented one; kernel_report). Returns a cudaError_t.
 extern "C" int wt_kernel_info(int mode, int two_level, int* out) {
   switch ((mode << 1) | (two_level ? 1 : 0)) {
-    case 0: return wt_info_of(wt_walk_entry<WT_PRIMARY, WL_MERGED, false>(), WP_THREADS, out);
-    case 1: return wt_info_of(wt_walk_entry<WT_PRIMARY, WL_TWO_LEVEL, false>(), WP_THREADS, out);
-    case 2: return wt_info_of(wt_walk_entry<WT_CLOSEST, WL_MERGED, false>(), WP_THREADS, out);
-    case 3: return wt_info_of(wt_walk_entry<WT_CLOSEST, WL_TWO_LEVEL, false>(), WP_THREADS, out);
-    case 4: return wt_info_of(wt_walk_entry<WT_ANY, WL_MERGED, false>(), WP_THREADS, out);
-    case 5: return wt_info_of(wt_walk_entry<WT_ANY, WL_TWO_LEVEL, false>(), WP_THREADS, out);
+    case 0: return kernel_report((const void*)wt_walk_entry<WT_PRIMARY, WL_MERGED, false>(), WP_THREADS, out);
+    case 1: return kernel_report((const void*)wt_walk_entry<WT_PRIMARY, WL_TWO_LEVEL, false>(), WP_THREADS, out);
+    case 2: return kernel_report((const void*)wt_walk_entry<WT_CLOSEST, WL_MERGED, false>(), WP_THREADS, out);
+    case 3: return kernel_report((const void*)wt_walk_entry<WT_CLOSEST, WL_TWO_LEVEL, false>(), WP_THREADS, out);
+    case 4: return kernel_report((const void*)wt_walk_entry<WT_ANY, WL_MERGED, false>(), WP_THREADS, out);
+    case 5: return kernel_report((const void*)wt_walk_entry<WT_ANY, WL_TWO_LEVEL, false>(), WP_THREADS, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -111,6 +111,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "kernel_report.cuh"
 #include "wide_common.cuh"
 
 #define WT_RESTORE (-1)           // stack entry: back to the world-space ray
@@ -764,26 +765,4 @@ static int wt_walk_launch(cudaStream_t s, const float* nodes, const float* rows,
         nodes, rows, inst_rows, ray_o, ray_d, t_max, R, next_ray, t_out, tri_out, inst_out,
         occ_out, stats);
   return (int)cudaGetLastError();
-}
-
-// What the compiler and the occupancy API report for a kernel: out =
-// {registers a thread, local (stack frame) bytes a thread, static shared
-// bytes a block, threads a block, blocks an SM, SMs}. Returns a cudaError_t.
-template <typename K>
-static int wt_info_of(K kernel, int threads, int* out) {
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
-  int per_sm = 0, dev = 0, sms = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes;
-  out[3] = threads;
-  out[4] = per_sm;
-  out[5] = sms;
-  return 0;
 }

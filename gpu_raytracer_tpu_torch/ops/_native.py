@@ -27,8 +27,9 @@ SOURCES = ("wide_traverse.cu", "shade_gather.cu", "svgf_stencil.cu",
            "probe_prims.cu", "probe_dma.cu")
 # Included by shade_gather.cu and fused_shade.cu; by wide_traverse.cu,
 # stream_traverse.cu and probe_gang.cu; by wide_traverse.cu and
-# stream_traverse.cu (the persistent-warp walk).
-HEADERS = ("shade_common.cuh", "wide_common.cuh", "wide_walk.cuh")
+# stream_traverse.cu (the persistent-warp walk); by every source with a
+# `*_kernel_info` (the compiler's and the occupancy API's report).
+HEADERS = ("shade_common.cuh", "wide_common.cuh", "wide_walk.cuh", "kernel_report.cuh")
 LIB_NAME = "libgpu_raytracer_torch_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false: no a*b+c -> fma contraction, so the kernels round like their
@@ -169,7 +170,11 @@ def load() -> ctypes.CDLL:
     lib.fs_num_fields.restype = ci
     lib.fs_num_fields.argtypes = [ci]
     lib.fs_shade.restype = ci
-    lib.fs_shade.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+    lib.fs_shade.argtypes = [vp, vp, vp, ci, vp, ci, ci, ci, ci, ci, vp]
+    lib.fs_kernel_info.restype = ci
+    lib.fs_kernel_info.argtypes = [vp]
+    lib.fs_row_floats.restype = ci
+    lib.fs_row_floats.argtypes = [ci]
     for fn in (lib.st_window, lib.st_stack_capacity, lib.st_portal_base, lib.st_root_bits):
         fn.restype = ci
         fn.argtypes = []
@@ -206,9 +211,13 @@ def load() -> ctypes.CDLL:
         raise RuntimeError("binary_traverse.cu BT_STACK != STACK_DEPTH")
     if lib.sv_variance_static_pow() != svgf_stencil.VARIANCE_STATIC_POW:
         raise RuntimeError("svgf_stencil.cu SV_POW_STATIC != VARIANCE_STATIC_POW")
-    if (lib.fs_num_fields(0) != len(fused_shade.IN_FIELDS)
-            or lib.fs_num_fields(1) != len(fused_shade.OUT_FIELDS)):
-        raise RuntimeError("fused_shade.cu field layout != IN_FIELDS/OUT_FIELDS")
+    if (tuple(lib.fs_num_fields(k) for k in range(3))
+            != tuple(map(len, (fused_shade.IN_FIELDS, fused_shade.OUT_FIELDS,
+                               fused_shade.TAB_FIELDS)))):
+        raise RuntimeError("fused_shade.cu field layout != IN_FIELDS/OUT_FIELDS/TAB_FIELDS")
+    if (tuple(lib.fs_row_floats(k) for k in range(3))
+            != (fused_shade.TRI_ROW, fused_shade.INST_ROW, fused_shade.LIGHT_ROW)):
+        raise RuntimeError("fused_shade.cu row widths != TRI_ROW/INST_ROW/LIGHT_ROW")
     if lib.wt_stack_capacity() != wide_traverse.STACK_CAPACITY:
         raise RuntimeError("wide_traverse.cu WT_STACK != STACK_CAPACITY")
     if lib.wt_num_stats() != len(wide_traverse.STATS):

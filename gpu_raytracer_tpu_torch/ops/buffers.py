@@ -117,7 +117,8 @@ def check_supported(scene: Scene) -> None:
                                   "not ported yet (ROADMAP queue A: textures)")
     if scene.mediums:
         raise NotImplementedError("homogeneous media are not ported yet "
-                                  "(ROADMAP queue A item 11)")
+                                  "(ROADMAP queue A: the rest of render_wave "
+                                  "(homogeneous media))")
     cfg = scene.config
     if cfg is not None and cfg.bvh_type == BVHType.BVH4:
         raise NotImplementedError(
@@ -707,7 +708,7 @@ def upload(host: dict, sampler: dict, device) -> dict:
         "binary": (None if binary is None
                    else bt.make_tables(*(t(x) for x in binary))),
         "fused_shade": (None if host["pallas_shade"] is None
-                        else tuple(t(x) for x in host["pallas_shade"])),
+                        else fs.make_tables(tuple(t(x) for x in host["pallas_shade"]))),
         "sampler": {k: v.to(dev) for k, v in sampler.items()},
         # Host copies for the fused shade's per-bounce params (make_params):
         # the flat PMJ tables and the constant sky times its scale.

@@ -14,18 +14,23 @@ per block of 1024 lanes (the block's 32x32 screen tile, `pmj.pack_noise_rows`),
 and a uint32 hash past 4096 samples.
 
 On a CUDA tensor `fused_shade` launches the hand-written kernel in
-`csrc/fused_shade.cu` (one thread per lane) and raises if it cannot; on a CPU
-tensor it runs `fused_shade_plain`, which follows the TPU kernel term by
+`csrc/fused_shade.cu` (one thread per lane; its table rows read with
+128-bit loads) and raises if it cannot; on a
+CPU tensor it runs `fused_shade_plain`, which follows the TPU kernel term by
 term. Table values are read by lane index where the TPU kernel select-scans
 them; the scan returns the same value on every lane whose result is used.
 
-Tables (ops/buffers.py `_pack_pallas_shade`, (16, .) f32 column-major):
+Tables (ops/buffers.py `_pack_pallas_shade`, (16, .) f32 column-major, the
+JAX layout, which the plain version reads):
   tri_geo (16, T): [0:9] p0 | e1 | e2 (object space)
   tri_nrm (16, T): [0:9] n0 | n1 | n2 (object space)
   inst_a  (16, I): [0:12] forward transform rows, [12] material id
   inst_b  (16, I): [0:12] inverse transform rows
   mat_tbl (16, M), kc_tbl (32, M): as the K3 shade kernel's
   lgt_tbl (16, L): [0] cdf, [1] light triangle, [2] light instance
+`make_tables` builds the kernel's rows from them once, with the scene's
+tables (`FusedTables`: a triangle's row, an instance's row with its
+material and curves joined on, a light's row in world space).
 params (48,) f32 (`make_params`): [0] bounce, [1] num_bounces, [2:5] sky
 rgb (scale folded), [5] total light weight, [6] sample index; per draw site
 s (RR, NEE_LIGHT, NEE_TRIANGLE, BSDF_0, BSDF_1): [16+4s .. 16+4s+4) =
@@ -35,6 +40,7 @@ s (RR, NEE_LIGHT, NEE_TRIANGLE, BSDF_0, BSDF_1): [16+4s .. 16+4s+4) =
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -66,6 +72,10 @@ IN_FIELDS = ("t", "tri", "inst", "u", "v", "ray_o", "ray_d", "throughput",
 OUT_FIELDS = ("radiance_add", "ray_o", "ray_d", "throughput", "alive",
               "prev_allow_nee", "last_pdf", "shadow_o", "shadow_d",
               "shadow_tmax", "illumination")
+# Pointer fields of FsTables, in order: the kernel's rows, the light CDF
+# (lgt_tbl row 0) and the sampler's two noise planes.
+TAB_FIELDS = ("tri_rows", "inst_rows", "light_rows", "cdf", "noise_x_rows",
+              "noise_y_rows")
 _VEC3 = {"ray_o", "ray_d", "throughput", "radiance_add", "shadow_o",
          "shadow_d", "illumination"}
 _BOOL = {"alive", "prev_allow_nee"}
@@ -73,6 +83,81 @@ _INT = {"tri", "inst", "pixel_index"}
 
 launches = {"fused_shade": 0}
 plain_calls = {"fused_shade": 0}
+# What `kernel_info` returns (csrc/fused_shade.cu fs_kernel_info).
+INFO = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm", "sms")
+
+
+class FusedTables(NamedTuple):
+    """The fused shade's tables in two layouts (`make_tables`): the JAX
+    package's column-major (16, n) tables, which the plain version reads,
+    and the kernel's rows, 16-byte aligned and read with 128-bit loads."""
+    tri_geo: torch.Tensor     # (16, T)
+    tri_nrm: torch.Tensor     # (16, T)
+    inst_a: torch.Tensor      # (16, I)
+    inst_b: torch.Tensor      # (16, I)
+    mat_tbl: torch.Tensor     # (16, M)
+    kc_tbl: torch.Tensor      # (32, M)
+    lgt_tbl: torch.Tensor     # (16, L)
+    tri_rows: torch.Tensor    # (T, 32): tri_geo | tri_nrm
+    inst_rows: torch.Tensor   # (I, 80): inst_a | inst_b | its material | its curves
+    light_rows: torch.Tensor  # (L, 16): p0, e1, e2 in world space, emission
+
+
+TRI_ROW, INST_ROW, LIGHT_ROW = 32, 80, 16
+
+
+def make_tables(cols) -> FusedTables:
+    """The seven (16 | 32, n) f32 tables of `_pack_pallas_shade` (the JAX
+    layout) -> FusedTables on their device. The kernel's rows are built here
+    once, on the host: a triangle's geometry and normals in one 128-byte
+    row; an instance's forward and inverse transforms with its material's
+    row and Kulla-Conty curves joined on, so one dependent load round gives
+    a hit all of them; a light's triangle in world space (its instance's
+    forward transform applied in float32, term by term in the kernel's
+    order, so the values are bit-equal to the transform the plain version
+    and the JAX kernel do per lane) and its emission."""
+    if len(cols) != 7:
+        raise ValueError(f"want the 7 fused shade tables, got {len(cols)}")
+    cols = tuple(torch.as_tensor(x) for x in cols)
+    dev = cols[0].device
+    h = [x.detach().to("cpu", torch.float32).numpy() for x in cols]
+    tri_geo, tri_nrm, inst_a, inst_b, mat_tbl, kc_tbl, lgt_tbl = h
+    rows_of = {"tri_geo": 16, "tri_nrm": 16, "inst_a": 16, "inst_b": 16,
+               "mat_tbl": 16, "kc_tbl": 32, "lgt_tbl": 16}
+    for (name, rows), x in zip(rows_of.items(), h):
+        if x.ndim != 2 or x.shape[0] != rows or x.shape[1] < 1:
+            raise ValueError(f"{name} must be ({rows}, n >= 1), got {x.shape}")
+    mat_id = inst_a[12].astype(np.int64)
+    inst_rows = np.concatenate([inst_a, inst_b, mat_tbl[:, mat_id], kc_tbl[:, mat_id]]).T
+    lt = lgt_tbl[1].astype(np.int64)
+    f = inst_a[:12, lgt_tbl[2].astype(np.int64)]
+    g = tri_geo[:9, lt]
+
+    def pt(x, y, z):  # fs_affine_pt
+        return [f[0] * x + f[1] * y + f[2] * z + f[3],
+                f[4] * x + f[5] * y + f[6] * z + f[7],
+                f[8] * x + f[9] * y + f[10] * z + f[11]]
+
+    def dr(x, y, z):  # fs_affine_dir
+        return [f[0] * x + f[1] * y + f[2] * z,
+                f[4] * x + f[5] * y + f[6] * z,
+                f[8] * x + f[9] * y + f[10] * z]
+
+    lmat = inst_a[12, lgt_tbl[2].astype(np.int64)].astype(np.int64)
+    light_rows = np.zeros((lgt_tbl.shape[1], LIGHT_ROW), np.float32)
+    light_rows[:, 0:12] = np.stack(pt(*g[0:3]) + dr(*g[3:6]) + dr(*g[6:9])
+                                   + list(mat_tbl[1:4, lmat])).T
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32), device=dev)
+
+    return FusedTables(*cols, t(np.concatenate([tri_geo, tri_nrm]).T), t(inst_rows),
+                       t(light_rows))
+
+
+def plain_tables(tables) -> tuple:
+    """The seven JAX-layout tables of `tables` (FusedTables or the 7-tuple)."""
+    return tuple(tables[:7])
 
 
 def supports_shade(mat_types, num_tris: int, num_instances: int,
@@ -171,7 +256,7 @@ def fused_shade_plain(tables, sampler, params, hit, ray_o, ray_d, throughput,
                       enable_rr: bool = True) -> dict:
     """Plain PyTorch version of the fused shade kernel (any device)."""
     plain_calls["fused_shade"] += 1
-    tri_geo, tri_nrm, inst_a, inst_b, mat_tbl, kc_tbl, lgt_tbl = tables
+    tri_geo, tri_nrm, inst_a, inst_b, mat_tbl, kc_tbl, lgt_tbl = plain_tables(tables)
     params = np.asarray(params, np.float32)
     P = [float(x) for x in params]
     bounce, num_bounces = np.float32(P[0]), np.float32(P[1])
@@ -376,6 +461,8 @@ def fused_shade_plain(tables, sampler, params, hit, ray_o, ray_d, throughput,
 def _launch(tables, sampler, params, hit, ray_o, ray_d, throughput, alive,
             prev_allow_nee, last_pdf, pixel_index, width, enable_nee,
             enable_mis, enable_rr):
+    if not isinstance(tables, FusedTables):
+        raise TypeError("pass tables built by make_tables()")
     lib = _native.load()
     R = hit.t.shape[0]
     dev = hit.t.device
@@ -391,15 +478,18 @@ def _launch(tables, sampler, params, hit, ray_o, ray_d, throughput, alive,
         if tuple(x.shape) != shape or x.device != dev:
             raise ValueError(f"lane {name}: {tuple(x.shape)} on {x.device}, "
                              f"want {shape} on {dev}")
-        want = (torch.bool if name in _BOOL else
-                torch.int32 if name in _INT else torch.float32)
+        want = (torch.bool if name in _BOOL else torch.int64 if name == "pixel_index"
+                else torch.int32 if name in _INT else torch.float32)
         ins[name] = x.to(want).contiguous()
-    tabs = [x.contiguous().float() for x in tables]
-    rows = [sampler["noise_x_rows"].contiguous().float(),
-            sampler["noise_y_rows"].contiguous().float()]
-    for x in tabs + rows:
-        if x.device != dev:
-            raise ValueError("fused shade tables and lanes must share one device")
+    # TAB_FIELDS' order; the kernel reads the rows with 16-byte loads.
+    tabs = [tables.tri_rows, tables.inst_rows, tables.light_rows,
+            tables.lgt_tbl[0].contiguous(), sampler["noise_x_rows"].contiguous(),
+            sampler["noise_y_rows"].contiguous()]
+    for x in tabs:
+        if x.device != dev or x.dtype != torch.float32:
+            raise ValueError("fused shade tables must be float32 on the lanes' device")
+        if x.data_ptr() % 16:
+            raise ValueError("fused shade table rows must be 16-byte aligned")
     outs = {}
     for name in OUT_FIELDS:
         dtype = torch.bool if name in _BOOL else torch.float32
@@ -408,17 +498,51 @@ def _launch(tables, sampler, params, hit, ray_o, ray_d, throughput, alive,
     in_ptrs = (ctypes.c_void_p * len(IN_FIELDS))(*[ins[n].data_ptr() for n in IN_FIELDS])
     out_ptrs = (ctypes.c_void_p * len(OUT_FIELDS))(
         *[outs[n].data_ptr() for n in OUT_FIELDS])
-    tab_ptrs = (ctypes.c_void_p * 9)(*[x.data_ptr() for x in tabs + rows])
-    dims = (ctypes.c_int * 4)(tabs[0].shape[1], tabs[2].shape[1],
-                              tabs[4].shape[1], tabs[6].shape[1])
+    tab_ptrs = (ctypes.c_void_p * len(tabs))(*[x.data_ptr() for x in tabs])
     p = (ctypes.c_float * NUM_PARAMS)(*np.asarray(params, np.float32).tolist())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.fs_shade(in_ptrs, out_ptrs, tab_ptrs, dims, p, int(width),
+    err = lib.fs_shade(in_ptrs, out_ptrs, tab_ptrs, tables.lgt_tbl.shape[1], p, int(width),
                        int(enable_nee), int(enable_mis), int(enable_rr), R,
                        ctypes.c_void_p(stream))
     _native.check(err, "fused_shade")
     launches["fused_shade"] += 1
     return outs
+
+
+def kernel_info() -> dict:
+    """What the compiler and the occupancy API report for the kernel on the
+    card (INFO: registers, stack frame and static shared bytes, the threads
+    of a block, the blocks an SM holds, the SMs)."""
+    lib = _native.load()
+    out = (ctypes.c_int * len(INFO))()
+    _native.check(lib.fs_kernel_info(out), "fused_shade.kernel_info")
+    return dict(zip(INFO, list(out)))
+
+
+def moved_bytes(args, out: dict) -> int:
+    """The least bytes one call on `args` (fused_shade's positional
+    arguments) must move: the tables once, the noise rows this wave
+    addresses (one row per draw site on the PMJ table and noise tile of a
+    block, in both planes), each lane's inputs once (a lane that comes in
+    dead needs only its instance, alive flag, throughput and ray), the
+    blocks' first pixel ids (every lane's where a site falls back to the
+    hash), and `out` (the outputs) written once."""
+    tables, sampler, params, hit, ray_o, ray_d, throughput, alive, pnee, lpdf, pix, width = args
+    params = np.asarray(params, np.float32)
+    tiles = torch.unique(block_tiles(pix, width)).tolist()
+    in_table = [s for s in range(len(SITES)) if params[16 + 4 * s + 3] > 0]
+    rows = {int(params[16 + 4 * s + 2]) * 16 + tile for s in in_table for tile in tiles}
+    R = int(hit.t.shape[0])
+    live = int(alive.sum())
+    # t, u, v, tri f32/i32; prev_allow_nee 1; last_pdf 4: live lanes only.
+    live_bytes = live * (4 * 4 + 1 + 4)
+    every_bytes = R * (4 + 1 + 3 * 12)  # inst, alive, throughput, ray_o, ray_d
+    pix_bytes = pix.element_size() * (R if len(in_table) < len(SITES)
+                                      else (R + BLOCK - 1) // BLOCK)
+    tab = sum(x.numel() * x.element_size() for x in plain_tables(tables))
+    outs = sum(x.numel() * x.element_size() for x in out.values())
+    row_bytes = 2 * len(rows) * sampler["noise_x_rows"][0].numel() * 4
+    return tab + row_bytes + live_bytes + every_bytes + pix_bytes + outs
 
 
 def fused_shade(tables, sampler, params, hit, ray_o, ray_d, throughput, alive,

@@ -261,6 +261,26 @@ def compare_shade(a: dict, b: dict) -> float:
     return worst
 
 
+def shade_lanes_differ(a: dict, b: dict) -> int:
+    """Lanes on which two shade kernels' outputs `a` and `b` differ by a bit
+    where compare_shade reads them: the masks, and each continuous output on
+    the lanes SHADE_OUTPUT_LANES names (taken from `b`). Used to hold a
+    redesigned kernel to the kernel it replaces."""
+    sb = b["shadow_tmax"] > 0
+    differ = (a["shadow_tmax"] > 0) != sb
+    for k in ("alive", "prev_allow_nee", "is_transmission"):
+        if k in a or k in b:
+            differ |= a[k] != b[k]
+    lanes = {"all": torch.ones_like(differ), "alive": b["alive"], "shadow": sb}
+    for k, which in SHADE_OUTPUT_LANES.items():
+        # Bit patterns, so that NaN == NaN and -0.0 != 0.0.
+        ne = a[k].view(torch.int32) != b[k].view(torch.int32)
+        if ne.dim() == 2:
+            ne = ne.any(dim=1)
+        differ |= ne & lanes[which]
+    return int(differ.sum())
+
+
 def compare_images(a, b, rays_a: int, rays_b: int) -> float:
     """Two (H, W, 3) numpy frames and their ray counts by the image bar;
     returns the rel-RMSE."""
@@ -312,6 +332,22 @@ def synthetic_mixed_tables(device):
     lgt[4:10] = torch.rand(6, L, generator=g) * 0.5
     lgt[10:13] = 5.0
     return tuple(x.to(device) for x in (mat, kc, lgt)), M
+
+
+def mixed_fused_args(args):
+    """Fused shade (K7) arguments `args` with every BSDF: the material and
+    curve tables replaced by synthetic_mixed_tables' and the scene's
+    instances given its materials in turn (instance i takes material i mod
+    M), the lanes and the light table kept."""
+    from gpu_raytracer_tpu_torch.ops import fused_shade as fs
+
+    tables = list(fs.plain_tables(args[0]))
+    dev = tables[0].device
+    (mat, kc, _), M = synthetic_mixed_tables(dev)
+    inst_a = tables[2].clone()
+    inst_a[12] = (torch.arange(inst_a.shape[1], device=dev) % M).float()
+    tables[2], tables[4], tables[5] = inst_a, mat, kc
+    return (fs.make_tables(tuple(tables)),) + tuple(args[1:])
 
 
 def deep_binary_tables(depth: int = 80, seed: int = 0):

@@ -356,6 +356,105 @@ def test_small_scene_kernels_match_plain(pt_small, sample):
     assert fs.launches["fused_shade"] == before[1] + len(got["fused_shade"])
 
 
+@pytest.fixture(scope="module")
+def fused_calls(pt_small):
+    """Every fused shade call of sample 0 on the Cornell stand-in (bounce
+    0 to the last, most lanes dead by bounce 4)."""
+    got = cs.capture_wave(pt_small, W * W, route="binary_shade", every=True)["fused_shade"]
+    assert len(got) >= 5
+    return got
+
+
+def _dead(args):
+    dead = list(args)
+    dead[7] = torch.zeros_like(dead[7])
+    return tuple(dead)
+
+
+@pytest.mark.parametrize("wave", ["mixed_b1", "mixed_b4", "late_b4", "dead_b1"])
+def test_fused_shade_kernel_waves(fused_calls, wave):
+    """K7 against its plain version on every BSDF (the synthetic mixed
+    tables) at bounce 1 and on a late bounce, on the late bounce itself,
+    and on a wave whose lanes are all dead (only what is read of a dead
+    lane: its throughput's RR scale, its NEE flag, its ray)."""
+    from gpu_raytracer_tpu_torch.integrators.pathtracer import DISPATCH, PLAIN
+    from gpu_raytracer_tpu_torch.ops import fused_shade as fs
+
+    kind, bounce = wave.split("_b")
+    args, kw = fused_calls[int(bounce)]
+    if kind == "mixed":
+        args = cs.mixed_fused_args(args)
+    elif kind == "dead":
+        args = _dead(args)
+    live = int(args[7].sum())
+    assert (live == 0) == (kind == "dead")
+    if kind != "dead":  # most lanes dead on the late bounce, some on bounce 1
+        assert (live < args[7].numel() // 4) == (bounce == "4")
+    before = fs.launches["fused_shade"]
+    got, want = DISPATCH.fused_shade(*args, **kw), PLAIN.fused_shade(*args, **kw)
+    cs.compare_shade(got, want)
+    assert fs.launches["fused_shade"] == before + 1
+    if kind == "dead":
+        assert not got["alive"].any() and (got["shadow_tmax"] == 0).all()
+        assert torch.equal(got["ray_o"], args[4]) and torch.equal(got["ray_d"], args[5])
+        assert (got["radiance_add"] == 0).all()
+
+
+def _padded_tables(tables, T, I, L):
+    """`tables` (JAX layout) with its triangles, instances and lights moved
+    to the end of tables T, I and L columns long (the padding copies the
+    first of each, the padded lights' CDF entries are 0 so that the pick
+    lands on the same light), and the shifts of the ids."""
+    tri_geo, tri_nrm, inst_a, inst_b, mat_tbl, kc_tbl, lgt_tbl = (x.clone() for x in tables)
+    dt, di, dl = T - tri_geo.shape[1], I - inst_a.shape[1], L - lgt_tbl.shape[1]
+
+    def pad(x, k):
+        return torch.cat([x[:, :1].expand(-1, k), x], dim=1)
+
+    lgt_tbl[1] += dt
+    lgt_tbl[2] += di
+    lgt = pad(lgt_tbl, dl)
+    lgt[0, :dl] = 0.0
+    return (pad(tri_geo, dt), pad(tri_nrm, dt), pad(inst_a, di), pad(inst_b, di),
+            mat_tbl, kc_tbl, lgt), dt, di
+
+
+def test_fused_shade_kernel_at_the_gate(pt_small, fused_calls):
+    """K7 on tables at the route's gate (64 (2T + 2I + L + 16) <= 600,000
+    bytes) that hold the Cornell scene's rows at their end: bit-equal to
+    K7 on the scene's own tables where the bar reads, and to the plain
+    version by the bar."""
+    from gpu_raytracer_tpu_torch.integrators.pathtracer import DISPATCH, PLAIN
+    from gpu_raytracer_tpu_torch.ops import binary_traverse as bt
+    from gpu_raytracer_tpu_torch.ops import fused_shade as fs
+
+    args, kw = fused_calls[1]
+    T, I, L = 3679, 500, 1000
+    assert 64 * (2 * T + 2 * I + L + 16) <= fs.MAX_SHADE_TABLE_BYTES
+    cols, dt, di = _padded_tables(fs.plain_tables(args[0]), T, I, L)
+    hit = args[3]
+    hit = bt.Hit(hit.t, torch.where(hit.tri >= 0, hit.tri + dt, hit.tri),
+                 torch.where(hit.inst >= 0, hit.inst + di, hit.inst), hit.u, hit.v)
+    big = (fs.make_tables(cols), args[1], args[2], hit) + tuple(args[4:])
+    got = DISPATCH.fused_shade(*big, **kw)
+    cs.compare_shade(got, PLAIN.fused_shade(*big, **kw))
+    assert cs.shade_lanes_differ(got, DISPATCH.fused_shade(*args, **kw)) == 0
+
+
+def test_fused_shade_kernel_info():
+    """The compiler's report: the lane's material and curves stay in
+    registers, so the stack frame holds only the argument-reduction slow
+    path of sample_disk's sinf / cosf (32 bytes; the parent kernel's 240
+    held the whole lane)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from gpu_raytracer_tpu_torch.ops import fused_shade as fs
+
+    info = fs.kernel_info()
+    assert info["blocks_per_sm"] >= 1 and info["sms"] > 0
+    assert info["local_bytes"] <= 32
+
+
 @pytest.mark.parametrize("size", [(W, W), (48, 40)])
 def test_small_scene_routes_match_plain(pt_small, size):
     """Route (a) (film sides multiples of 32) and route (b) (not), kernels

@@ -61,13 +61,25 @@ small-scene kernels: K8 closest and any on the small cell's bounce-1 wave
 and its shadow wave (cornell_scene at --small-size, route (a), 6 bounces, as
 chip_smoke.py phase 3sm captures them), K8 on the route (b) waves of the
 same scene at --width x --height (3 bounces, the bounce-1 wave and its
-shadow wave), and K7 (the fused shade) on the route (a) bounce-1 wave; K8
-held to trace_plain by parity.compare_binary / compare_any, with its bound
-(phase 3sm's: tables, rays and outputs once over 3.35 TB/s, or the plain
-visits' operations, binary_traverse.OPS_PER_*, over 67 TFLOP/s), and the
-hits of every tree equal to the first tree's; K7 held by
-parity.compare_shade. `--skip-wide` leaves out the wide traversal roles
-(the merged cell is still built for --shade and --svgf).
+shadow wave), and K7 (the fused shade) on four waves of route (a): (a)
+bounce 1, (b) bounce 1 on the synthetic mixed-BSDF tables
+(parity.mixed_fused_args), (c) bounce 4 of 6 (most lanes dead), and
+bounce 1 with every lane dead (--small-size 1024 gives wave (d), four
+times the lanes); K8 held to trace_plain by parity.compare_binary /
+compare_any, with its bound (phase 3sm's: tables, rays and outputs once
+over 3.35 TB/s, or the plain visits' operations, binary_traverse.OPS_PER_*,
+over 67 TFLOP/s), and the hits of every tree equal to the first tree's;
+K7 held by parity.compare_shade, with its live share and bound
+(fused_shade.moved_bytes, or the plain version's pointwise operations),
+each tree's kernel report (fused_shade.kernel_info, or a shim for a tree
+without it) and, for K7 and K3, the count of lanes whose outputs differ by
+a bit from the first tree's where the bar reads them
+(parity.shade_lanes_differ). A tree gets K7's tables in the layout its
+`fused_shade.make_tables` builds (the JAX layout where it has none).
+`@fast_shade` is this tree with sample_disk's sinf / cosf as __sinf /
+__cosf (K7 and K3; timed, held to the bar only as a report, never
+shipped). `--skip-wide` leaves out the wide traversal roles (the merged
+cell is still built for --shade and --svgf).
 
 On the CPU (`--device cpu`, a tiny size) the kernels' places are taken by
 the plain versions: no build and no times; the visits and the utilisation
@@ -93,32 +105,29 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "gpu_raytracer_tpu_torch"
 ROLES = ("primary", "closest", "any")
 # wt_kernel_info for a tree that predates it: its kernel template
-# wt_trace_kernel<MODE, TWO_LEVEL>, 128 threads a block.
+# wt_trace_kernel<MODE, TWO_LEVEL>, 128 threads a block; fs_kernel_info for
+# one that predates that: fs_shade_kernel, 128 threads a block. Each is
+# built against the tree's source and this checkout's kernel_report.cuh.
 SHIM = r"""
 #include "wide_traverse.cu"
-template <typename K>
-static int shim_of(K kernel, int* out) {
-  cudaFuncAttributes a;
-  int per_sm = 0, dev = 0, sms = 0;
-  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 128, 0);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  out[0] = a.numRegs; out[1] = (int)a.localSizeBytes; out[2] = (int)a.sharedSizeBytes;
-  out[3] = 128; out[4] = per_sm; out[5] = sms;
-  return (int)err;
-}
+#include "kernel_report.cuh"
 extern "C" int shim_info(int mode, int two_level, int* out) {
   switch (mode * 2 + (two_level ? 1 : 0)) {
-    case 0: return shim_of(wt_trace_kernel<0, false>, out);
-    case 1: return shim_of(wt_trace_kernel<0, true>, out);
-    case 2: return shim_of(wt_trace_kernel<1, false>, out);
-    case 3: return shim_of(wt_trace_kernel<1, true>, out);
-    case 4: return shim_of(wt_trace_kernel<2, false>, out);
-    case 5: return shim_of(wt_trace_kernel<2, true>, out);
+    case 0: return kernel_report((const void*)wt_trace_kernel<0, false>, 128, out);
+    case 1: return kernel_report((const void*)wt_trace_kernel<0, true>, 128, out);
+    case 2: return kernel_report((const void*)wt_trace_kernel<1, false>, 128, out);
+    case 3: return kernel_report((const void*)wt_trace_kernel<1, true>, 128, out);
+    case 4: return kernel_report((const void*)wt_trace_kernel<2, false>, 128, out);
+    case 5: return kernel_report((const void*)wt_trace_kernel<2, true>, 128, out);
   }
   return 1;
+}
+"""
+FS_SHIM = r"""
+#include "fused_shade.cu"
+#include "kernel_report.cuh"
+extern "C" int shim_info(int, int, int* out) {
+  return kernel_report((const void*)fs_shade_kernel, 128, out);
 }
 """
 INFO = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm", "sms")
@@ -158,6 +167,10 @@ def parse(argv=None):
 # @NAME trees: (source file under csrc/, [(text, replacement)]), each text
 # found exactly once.
 PATCHES = {
+    "@fast_shade": ("shade_common.cuh", [
+        ("  *x = r * cosf(phi);\n  *y = r * sinf(phi);",
+         "  *x = r * __cosf(phi);\n  *y = r * __sinf(phi);"),
+    ]),
     "@fast_variance": ("svgf_stencil.cu", [
         ("  const float c_dz = __ldg(g + 4 * plane + p);\n",
          "  const float c_dz = __ldg(g + 4 * plane + p);\n  const float inv_den = 1.0f / den;\n"),
@@ -315,8 +328,11 @@ def capture_small(args) -> tuple:
     (cornell_scene at --small-size, 6 bounces), K8 on the route (b)
     bounce-1 wave and its shadow wave (the same tables, the film at --width
     x --height, 3 bounces). Returns (waves, {cell: facts})."""
+    import torch
+
     from gpu_raytracer_tpu_torch import CPUConfig, GPUConfig, parity
     from gpu_raytracer_tpu_torch.integrators.pathtracer import Pathtracer
+    from gpu_raytracer_tpu_torch.ops import fused_shade as fs
     from gpu_raytracer_tpu_torch.scenes import cornell_scene
 
     S, dev = args.small_size, args.device
@@ -332,8 +348,22 @@ def capture_small(args) -> tuple:
     for role in ("binary_closest", "binary_any"):
         waves[role] = {"kind": "binary", "role": role, "cell": "small",
                        "args": tuple(got[role][1][0])}
-    args_k7, kw = got["fused_shade"][1]
-    waves["fused_shade"] = {"kind": "fused", "cell": "small", "args": args_k7, "kw": kw}
+    # K7's waves, with the tables in the JAX layout (each tree's process
+    # builds its own kernel layout from them): (a) bounce 1, (b) bounce 1
+    # on the synthetic mixed-BSDF tables, (c) bounce 4 of 6 (most lanes
+    # dead), and the bounce-1 wave with every lane dead.
+    calls = got["fused_shade"]
+    if len(calls) < 5:
+        raise RuntimeError(f"the small cell's sample ended after {len(calls)} bounces")
+    for key, (a, kw) in (("fused_shade", calls[1]),
+                         ("fused_mixed", (parity.mixed_fused_args(calls[1][0]), calls[1][1])),
+                         ("fused_late", calls[4])):
+        waves[key] = {"kind": "fused", "cell": "small",
+                      "args": (fs.plain_tables(a[0]),) + tuple(a[1:]), "kw": kw}
+    dead = list(waves["fused_shade"]["args"])
+    dead[7] = torch.zeros_like(dead[7])
+    waves["fused_dead"] = {"kind": "fused", "cell": "small", "args": tuple(dead),
+                           "kw": waves["fused_shade"]["kw"]}
     pt_b = Pathtracer(cornell_scene(args.width, args.height), pt.cpu_config,
                       GPUConfig(num_bounces=3), device=dev)
     pt_b.buffers = pt.buffers
@@ -396,6 +426,7 @@ def plain_results(waves: dict) -> dict:
     from gpu_raytracer_tpu_torch import probes
     from gpu_raytracer_tpu_torch.integrators.pathtracer import PLAIN
     from gpu_raytracer_tpu_torch.ops import binary_traverse as bt
+    from gpu_raytracer_tpu_torch.ops import fused_shade as fs
     from gpu_raytracer_tpu_torch.ops import stream_traverse as st
     from gpu_raytracer_tpu_torch.ops import wide_traverse as wt
 
@@ -425,8 +456,14 @@ def plain_results(waves: dict) -> dict:
             facts = {"rays": int(tm.shape[0]), "live": int((tm > 0).sum()), "visits": work,
                      "bound_ms": b_ms, "bound_by": b_by}
         elif w["kind"] == "fused":
-            res = PLAIN.fused_shade(*w["args"], **w["kw"])
-            facts = {"rays": int(w["args"][3].t.shape[0])}
+            def fn(w=w):
+                return PLAIN.fused_shade(*w["args"], **w["kw"])
+            res = fn()
+            b_ms, b_by = probes.bound(fs.moved_bytes(w["args"], res), probes.pointwise_ops(fn))
+            rays, live = int(w["args"][3].t.shape[0]), int(w["args"][7].sum())
+            facts = {"rays": rays, "live": live, "live_share": live / rays,
+                     "bytes": fs.moved_bytes(w["args"], res), "bound_ms": b_ms,
+                     "bound_by": b_by}
         elif w["kind"] == "svgf":
             def fn(w=w):
                 return getattr(PLAIN, w["role"])(*w["args"], **w["kw"])
@@ -489,21 +526,22 @@ def compare(key: str, w: dict, got, plain) -> float:
 # A tree's process
 # ---------------------------------------------------------------------------
 
-def shim_info(tree: str, mode: int, two_level: bool) -> dict:
-    """wt_kernel_info for a tree without it: a shim built against its
-    wide_traverse.cu (cached beside its library)."""
+def shim_info(tree: str, mode: int, two_level: bool, which: str = "wt") -> dict:
+    """wt_kernel_info (fs_kernel_info with `which` "fs") for a tree without
+    it: a shim built against its wide_traverse.cu (fused_shade.cu), cached
+    beside its library."""
     import ctypes
 
     from gpu_raytracer_tpu_torch.ops import _native
 
-    lib_path = os.path.join(_native.BUILD_DIR, "libwt_shim.so")
+    lib_path = os.path.join(_native.BUILD_DIR, f"lib{which}_shim.so")
     if not os.path.exists(lib_path):
-        src = os.path.join(_native.BUILD_DIR, "wt_shim.cu")
+        src = os.path.join(_native.BUILD_DIR, f"{which}_shim.cu")
         with open(src, "w") as f:
-            f.write(SHIM)
+            f.write(SHIM if which == "wt" else FS_SHIM)
         subprocess.run([_native.find_nvcc(), *_native.NVCC_FLAGS, "-shared", "-I",
-                        _native.CSRC_DIR, "-o", lib_path, src], check=True,
-                       capture_output=True)
+                        _native.CSRC_DIR, "-I", os.path.join(REPO, PKG, "csrc"), "-o",
+                        lib_path, src], check=True, capture_output=True)
     lib = ctypes.CDLL(lib_path)
     lib.shim_info.restype = ctypes.c_int
     lib.shim_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -525,6 +563,7 @@ def worker(args) -> int:
     from gpu_raytracer_tpu_torch.integrators.pathtracer import DISPATCH
     from gpu_raytracer_tpu_torch.ops import _native
     from gpu_raytracer_tpu_torch.ops import binary_traverse as bt
+    from gpu_raytracer_tpu_torch.ops import fused_shade as fs
     from gpu_raytracer_tpu_torch.ops import stream_traverse as st
     from gpu_raytracer_tpu_torch.ops import svgf_stencil as sv
     from gpu_raytracer_tpu_torch.ops import wide_traverse as wt
@@ -569,8 +608,17 @@ def worker(args) -> int:
             def fn(w=w):
                 return DISPATCH.shade(*w["args"], **w["kw"])
         elif w["kind"] == "fused":
-            def fn(w=w):
-                return DISPATCH.fused_shade(*w["args"], **w["kw"])
+            # The tables in the layout the tree asks for (a tree before the
+            # kernel's rows takes the JAX layout as it is).
+            fused_args = w["args"]
+            if hasattr(fs, "make_tables"):
+                fused_args = (fs.make_tables(fused_args[0]),) + tuple(fused_args[1:])
+
+            def fn(w=w, fused_args=fused_args):
+                return DISPATCH.fused_shade(*fused_args, **w["kw"])
+            if cuda:
+                rep["info"][key] = (fs.kernel_info() if hasattr(fs, "kernel_info")
+                                    else shim_info(tree, 0, False, "fs"))
         elif w["kind"] == "binary":
             def fn(w=w):
                 return getattr(DISPATCH, w["role"])(*w["args"])
@@ -653,7 +701,7 @@ def main() -> int:
         rep = got["rep"]
         # The traversal kernels: wt_* (and st_* of a tree before the paged
         # passes ran on the walk), bt_*; the stencils: sv_*.
-        rep["ptxas"] = ({k: v for prefix in ("wt_", "st_", "bt_", "sv_")
+        rep["ptxas"] = ({k: v for prefix in ("wt_", "st_", "bt_", "sv_", "fs_", "sg_")
                          for k, v in _native.ptxas_report(rep["ptxas"], prefix).items()}
                         if rep["ptxas"] else {})
         errs = {}
@@ -666,6 +714,13 @@ def main() -> int:
                 tol = parity.STENCIL_TOL
                 rep.setdefault("stencil_bar_holds", {})[key] = not bool(
                     ((out - want).abs() > tol + tol * want.abs()).any())
+            elif w["kind"] in ("shade", "fused") and patched:
+                try:
+                    errs[key] = compare(key, w, out, plain[key][0])
+                    holds = True
+                except AssertionError as e:
+                    errs[key], holds = str(e), False
+                rep.setdefault("shade_bar_holds", {})[key] = holds
             else:
                 errs[key] = compare(key, w, out, plain[key][0])
             if w["kind"] == "svgf":
@@ -677,6 +732,12 @@ def main() -> int:
                 if w["role"] == "svgf_variance" and not same and not patched:
                     raise AssertionError(f"tree {spec}: svgf_variance differs from tree "
                                          f"{trees[0][0]}'s")
+            if w["kind"] in ("fused", "shade"):
+                # The shade kernels: lanes whose outputs differ by a bit from
+                # the first tree's where the bar reads them.
+                first = first_outs.setdefault(key, out)
+                rep.setdefault("lanes_differ_first_tree", {})[key] = \
+                    parity.shade_lanes_differ(out, first)
             if w["kind"] == "binary":  # every tree's hits are the first tree's
                 first = first_outs.setdefault(key, out)
                 pairs = zip(out, first) if isinstance(out, tuple) else ((out, first),)
@@ -700,6 +761,13 @@ def main() -> int:
             print(f"[time_traverse]   K5 max |err| against the plain versions: "
                   f"{json.dumps({k: errs[k] for k in rep['stencil_bar_holds']})}; "
                   f"within the stencil bar: {json.dumps(rep['stencil_bar_holds'])}", flush=True)
+        if rep.get("shade_bar_holds"):
+            print(f"[time_traverse]   shade bar against the plain versions: "
+                  f"{json.dumps(rep['shade_bar_holds'])}", flush=True)
+        if rep.get("lanes_differ_first_tree"):
+            print(f"[time_traverse]   shade lanes that differ by a bit from tree "
+                  f"{trees[0][0]}'s where the bar reads them: "
+                  f"{json.dumps(rep['lanes_differ_first_tree'])}", flush=True)
         if rep.get("bit_equal_first_tree"):
             print(f"[time_traverse]   K5 outputs bit-equal to tree {trees[0][0]}'s: "
                   f"{json.dumps(rep['bit_equal_first_tree'])}", flush=True)
