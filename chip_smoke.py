@@ -167,6 +167,15 @@ nonzero):
      kernels).
   4mdc. the media Cornell stand-in at 512x512, 6 bounces, route (b): K8
      and K3 with SG_MEDIA, no fused shade.
+  4cp. the late-bounce compaction at the default depth: the merged 1080p
+     cell at `GPUConfig()` (b10) and the instanced 1080p b4 cell, one
+     sample with the tiers `Pathtracer` passes and one with (2, 4, 16),
+     which narrow both cells, each against one with none: max |d| <= 1e-6
+     (expected 0), equal rays, every kernel of the route launched and no
+     plain version; the live lanes and width of each bounce of the first
+     wave; warm ms/sample each way (median of 3) and one profiled sample
+     each way: device busy ms, launches, and the compaction's own launches
+     and device ms.
   4ao. ambient occlusion (integrators/ao.py) at 1920x1080 on the merged
      scene's tables: K1 primary and the wide any walk only, ms/sample and
      Mrays/s; 2 spp kernels vs plain, visibility equal on >= 99.9% of the
@@ -256,6 +265,7 @@ BOUNCES_MD = 6          # the media scenes' depth: paths scatter inside the sphe
 SVGF_FRAMES = 8         # timed denoised frames, after one warm-up
 SVGF_MOVING = 4         # of which the last ones pan the camera
 PAN_PX = 3.0            # image shift per moving frame, beyond the +-2 px window
+COMPACT_FORCED = (2, 4, 16)  # phase 4cp's tiers that narrow both cells
 
 WT_SRC = "gpu_raytracer_tpu_torch/csrc/wide_traverse.cu"
 SV_SRC = "gpu_raytracer_tpu_torch/csrc/svgf_stencil.cu"
@@ -1339,6 +1349,101 @@ def phase_media_profile(pt) -> None:
                f"{r['idle_share']:.3f}, {r['device_events']} device events, "
                f"{r['host_launches']} cudaLaunchKernel calls ({r['host_launch_ms']:.2f} ms "
                f"host); largest: {top}")
+
+
+def phase_compaction(scenes: dict, card: str) -> None:
+    """Phase 4cp: the late-bounce compaction (render_wave `compact_tiers`)
+    at the default depth, on the merged 1080p cell at `GPUConfig()` (b10)
+    and the instanced 1080p b4 cell, each a Pathtracer sharing its cell's
+    tables, three ways: full width (no tiers), the tiers `Pathtracer`
+    passes (`default_compact_tiers`, reported by `compaction`) and
+    COMPACT_FORCED, which narrows both cells (the gate patched to give each
+    way's tiers). One sample each way, counts set to 0 before the compacted
+    ones and read after them: every kernel of the cell's route launched, no
+    plain version; each compacted image against the full-width one, max |d|
+    <= 1e-6 (expected 0), and equal rays; the live lanes and width of each
+    bounce of the first wave and the waves that narrowed (COMPACT_FORCED
+    must narrow one). Then warm ms/sample each way (median of 3, in
+    turns) and one sample each way under torch.profiler
+    (tools/torch_profile_sample.py, after a warm one): wall, device busy
+    ms, launches, and the compaction's own launches and device ms (the
+    kernels under its profiler range, `pathtracer.COMPACT_RANGE`, over
+    every wave)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from gpu_raytracer_tpu_torch import GPUConfig
+    from gpu_raytracer_tpu_torch.integrators import pathtracer as ptm
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import torch_profile_sample as prof
+
+    prof.WARM = 1
+    cells = (("merged", GPUConfig(), ("primary", "closest", "any", "shade", "shade_last")),
+             ("two_level", GPUConfig(num_bounces=BOUNCES_TL),
+              ("primary_tl", "closest_tl", "any_tl", "shade", "shade_last")))
+    for key, gpu, names in cells:
+        scene, base = scenes[key]
+        pt = ptm.Pathtracer(scene, base.cpu_config, gpu, device="cuda")
+        pt.share_tables(base)
+        report = pt.compaction
+        if not report["tiers"]:
+            raise AssertionError(f"4cp {key}: no compaction tiers at b{gpu.num_bounces}")
+        wave = pt._wave_size()
+        ways = {"full width": (), "default": report["tiers"], "forced": COMPACT_FORCED}
+
+        def render(tiers):
+            with mock.patch.object(ptm, "default_compact_tiers", lambda R, config: tiers):
+                pt.render()
+            torch.cuda.synchronize()
+
+        got = {}
+        for way, tiers in ways.items():
+            pt.reset_accumulation()
+            if way == "default":
+                reset_counts()
+            render(tiers)
+            got[way] = (pt.framebuffer(), pt.rays_traced, pt.compaction)
+        launched, plain = counts()
+        missing = [n for n in names if launched[n] <= 0]
+        if missing or any(plain.values()):
+            raise AssertionError(f"4cp {key}: kernels {missing} never launched or plain "
+                                 f"versions ran: {plain}")
+        full, rays_full, _ = got["full width"]
+        diffs = {}
+        for way in ("default", "forced"):
+            img, rays, _ = got[way]
+            diffs[way] = float(np.abs(img - full).max())
+            if not np.isfinite(img).all() or diffs[way] > 1e-6 or rays != rays_full:
+                raise AssertionError(f"4cp {key}, {way} tiers: compacted vs full width max "
+                                     f"|d| {diffs[way]}, rays {rays} vs {rays_full}")
+        if not got["forced"][2]["waves_narrowed"]:
+            raise AssertionError(f"4cp {key}: tiers {COMPACT_FORCED} ran no bounce narrow")
+        ms = {way: [] for way in ways}
+        for _ in range(3):
+            for way, tiers in ways.items():
+                t0 = time.perf_counter()
+                render(tiers)
+                ms[way].append(1000.0 * (time.perf_counter() - t0))
+        parts = []
+        for way, tiers in ways.items():
+            r = prof.profile_sample(lambda t=tiers: render(t), ranges=(ptm.COMPACT_RANGE,))
+            own = r["ranges"][ptm.COMPACT_RANGE]
+            check = ("" if not tiers else
+                     f"max |d| {diffs[way]:.3g} against full width, rays {got[way][1]}; ")
+            parts.append(
+                f"{way} {tiers}: {check}first wave (bounce, live, width) "
+                f"{got[way][2]['bounces']}, {got[way][2]['waves_narrowed']} waves narrowed; "
+                f"{np.median(ms[way]):.2f} ms/sample (each "
+                f"{', '.join(f'{x:.2f}' for x in ms[way])}); profiled: wall "
+                f"{r['wall_ms']:.2f} ms, device busy {r['device_busy_ms']:.2f} ms, idle "
+                f"share {r['idle_share']:.3f}, {r['host_launches']} launches, of them the "
+                f"compaction's {own['launches']} ({own['device_ms']:.3f} ms device, "
+                f"{own['calls']} packings and write-backs)")
+        say("4cp", f"{key} {pt.width}x{pt.height} b{gpu.num_bounces} on {card}, "
+                   f"{wave}-ray waves, rays {rays_full}: " + " | ".join(parts))
 
 
 def phase_ao(scene, pt) -> dict:
@@ -2534,6 +2639,7 @@ def main() -> int:
                                                                        "binary_any",
                                                                        "fused_shade"))
     phase_media_profile(scenes["media"][1])
+    phase_compaction(scenes, f"{kind} ({smi})")
     launched_mdc = phase_slice(scenes["media_small"][1], "4mdc",
                                ("binary_closest", "binary_any", "shade", "shade_last",
                                 "shade_media"),

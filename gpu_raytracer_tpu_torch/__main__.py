@@ -108,6 +108,9 @@ def main(argv=None) -> int:
     print(f"[render] {rendered} {what} in {dt:.2f}s "
           f"({1000.0 * dt / rendered:.1f} ms each, "
           f"{integrator.rays_traced} rays)")
+    if hasattr(integrator, "compaction"):
+        # The late-bounce compaction's tiers and the first wave's bounces.
+        print(f"[compaction] {integrator.compaction}")
     if ckpt.path and os.path.exists(ckpt.path):
         os.remove(ckpt.path)  # the render completed: the snapshot is stale
     if cpu.output_filename:

@@ -38,6 +38,19 @@ One wide-route `render_wave` call renders one sample for one wave of pixels:
      emission only, with no draws and no shadow wave;
   5. NaN/Inf pixels become magenta.
 
+Late-bounce compaction (JAX render_wave `compact_tiers`, the reference's
+material-queue compaction, Pathtracer.cu:426-462): on every route but
+"binary_shade", when the live lanes at the top of a bounce >= 1 fit one of
+the narrow widths of `compact_caps(R, compact_tiers)` below the wave's
+current width, the smallest such width is taken: the live lanes are packed
+in lane order (`compact_lanes`) and this and every later bounce run on the
+narrow wave, so a lane that dies is never traced again. A smaller tier's
+width packs again. Only radiance (and `direct` under AOVs) goes back to
+full width, by the composed map from slots to the wave's lanes: after the
+loop, and at each later packing for the lanes it leaves behind. Each lane
+computes exactly what it would at full width. `Pathtracer` passes
+`default_compact_tiers` of its wave.
+
 Scenes with homogeneous media (`has_media`) carry each lane's medium id
 (-1 outside every medium; every lane starts outside). After each closest-hit
 wave of a bounce >= 1, the last included, and before the sky, lanes inside
@@ -113,6 +126,8 @@ from gpu_raytracer_tpu_torch.ops.vec import (
 )
 
 EPSILON = 1e-4  # ray-origin offset (Common.h:75)
+# The profiler range of the compaction's packing and write-backs.
+COMPACT_RANGE = "render_wave.compact"
 
 
 class KernelSet(NamedTuple):
@@ -235,7 +250,8 @@ def render_wave(buffers: dict, camera: dict, pixel_index: torch.Tensor,
                 valid_mask: Optional[torch.Tensor] = None,
                 mat_types: Optional[tuple] = None,
                 kernels: KernelSet = DISPATCH, with_aovs: bool = False,
-                route: str = "wide", has_media: Optional[bool] = None):
+                route: str = "wide", has_media: Optional[bool] = None,
+                compact_tiers: tuple = (), bounce_log: Optional[list] = None):
     """Trace one sample for one wave of pixels -> (R, 3) radiance, or with
     `with_aovs` a dict of (R, ...) AOVs (radiance, direct, indirect, albedo,
     normal, position, position_prev, depth, instance); and the traced-ray
@@ -246,7 +262,10 @@ def render_wave(buffers: dict, camera: dict, pixel_index: torch.Tensor,
     `config.enable_mipmapping` is on, as in the JAX package: an anisotropic
     tap at bounce 0, an isotropic nearest-mip tap in the shade kernel
     after. `has_media` (default `buffers["has_media"]`) runs the medium
-    step and hands media over (module docstring)."""
+    step and hands media over (module docstring). `compact_tiers` narrows
+    the bounces >= 1 to the live lanes (module docstring; not on
+    "binary_shade"); `bounce_log`, a list, gets (bounce, live lanes, wave
+    width) for each bounce >= 1 traced."""
     if mat_types is None:
         mat_types = buffers["mat_types"]
     if has_media is None:
@@ -352,7 +371,7 @@ def render_wave(buffers: dict, camera: dict, pixel_index: torch.Tensor,
         radiance, rays_traced = _fused_bounces(
             buffers, kernels, trace_closest, trace_any, pixel_index,
             sample_index, config, width, nee_possible, ray_o, ray_d, radiance,
-            throughput, alive, rays_traced)
+            throughput, alive, rays_traced, bounce_log)
         return _finish(radiance, direct, aovs, with_aovs, with_stats, rays_traced)
 
     def tmax_of(live):
@@ -503,8 +522,43 @@ def render_wave(buffers: dict, camera: dict, pixel_index: torch.Tensor,
     # unless the scene has media: the medium step draws there too).
     shade_tables = buffers["shade_gather"]
     params = (config.num_bounces, total_weight, float(cone_angle) if use_textures else 0.0)
+    caps = compact_caps(R, compact_tiers)
+    # Once compacted: the wave's lane of each slot, and the full-width
+    # radiance (and direct) that the narrow wave's are written back into.
+    lane_ids = full = None
+    live_prev = R
     bounce = 1
-    while bounce < config.num_bounces and bool(alive.any()):
+    while bounce < config.num_bounces:
+        live = int(alive.sum())
+        if live == 0:
+            break
+        cap = next((c for c in caps if live <= c < alive.shape[0]), None)
+        if cap is not None:
+            carry = {"ray_o": ray_o, "ray_d": ray_d, "radiance": radiance,
+                     "throughput": throughput, "last_pdf": last_pdf, "alive": alive,
+                     "prev_allow_nee": prev_allow_nee, "pixel_index": pixel_index}
+            for name, x in (("cone_width", cone_width if use_textures else None),
+                            ("rr_albedo", rr_albedo), ("medium_id", medium_id),
+                            ("direct", direct)):
+                if x is not None:
+                    carry[name] = x
+            if full is None:
+                full = (radiance, direct)
+            else:  # the narrow wave's lanes, live or not, as they stand
+                _write_back(full, lane_ids, live_prev, radiance, direct)
+            with torch.profiler.record_function(COMPACT_RANGE):
+                slots, carry = compact_lanes(carry, live, cap)
+            lane_ids = slots if lane_ids is None else lane_ids[slots]
+            live_prev = live
+            ray_o, ray_d, radiance = carry["ray_o"], carry["ray_d"], carry["radiance"]
+            throughput, last_pdf, alive = carry["throughput"], carry["last_pdf"], carry["alive"]
+            prev_allow_nee, pixel_index = carry["prev_allow_nee"], carry["pixel_index"]
+            cone_width = carry.get("cone_width", cone_width)
+            rr_albedo = carry.get("rr_albedo")
+            medium_id = carry.get("medium_id")
+            direct = carry.get("direct")
+        if bounce_log is not None:
+            bounce_log.append((bounce, live, alive.shape[0]))
         rays_traced = rays_traced + alive.sum()
         hit = trace_closest(ray_o, ray_d, tmax_of(alive))
         radiance = poison_truncated(radiance, alive)
@@ -581,7 +635,68 @@ def render_wave(buffers: dict, camera: dict, pixel_index: torch.Tensor,
             last_pdf = torch.where(scatters, 1.0, last_pdf)
         bounce += 1
 
+    if full is not None:
+        radiance, direct = _write_back(full, lane_ids, live_prev, radiance, direct)
     return _finish(radiance, direct, aovs, with_aovs, with_stats, rays_traced)
+
+
+def default_compact_tiers(R: int, config: GPUConfig) -> tuple:
+    """The compaction tiers `Pathtracer` passes render_wave for a wave of
+    `R` rays (JAX default_compact_tiers, a gate sized on the TPU and kept as
+    routing, ROADMAP C42): none below 2^18 rays or at <= 3 bounces, else
+    one tier of 1/16."""
+    if R < (1 << 18) or config.num_bounces <= 3:
+        return ()
+    return (16,)
+
+
+def compact_caps(R: int, tiers) -> tuple:
+    """The narrow wave widths of `tiers` for a wave of `R` lanes, ascending
+    (JAX render_wave `_tiered_body`): a tier `div` gives
+    ceil((R // div) / 1024) * 1024 lanes; tiers under 2, or of fewer than
+    1024 lanes, none."""
+    return tuple(sorted({-(-(R // d) // 1024) * 1024 for d in {int(t) for t in tiers}
+                         if d >= 2 and R // d >= 1024}))
+
+
+def compact_lanes(carry: dict, live: int, cap: int):
+    """Pack the `live` lanes of `carry["alive"]` into `cap` slots, in lane
+    order (a cumsum gives each its slot; one scatter of the lane ids), with
+    one gather of the float lanes stacked and one of the integer lanes.
+    Padding slots hold lane 0's values and are dead. Returns (the lane of
+    each slot, the packed carry: every (W, ...) tensor of `carry` at (cap,
+    ...))."""
+    alive = carry["alive"]
+    dev = alive.device
+    W = alive.shape[0]
+    slot = torch.where(alive, torch.cumsum(alive, 0) - 1, cap)
+    lanes = torch.zeros(cap + 1, dtype=torch.int64, device=dev).scatter_(
+        0, slot, torch.arange(W, device=dev))[:cap]
+    floats = [k for k, x in carry.items() if x.is_floating_point()]
+    ints = [k for k in carry if k not in floats]
+    cols = [carry[k].reshape(W, -1) for k in floats]
+    packed_f = torch.cat(cols, 1).index_select(0, lanes)
+    packed_i = torch.stack([carry[k].long() for k in ints], 1).index_select(0, lanes)
+    out, at = {}, 0
+    for k, c in zip(floats, cols):
+        out[k] = packed_f[:, at:at + c.shape[1]].reshape((cap,) + carry[k].shape[1:]).contiguous()
+        at += c.shape[1]
+    for j, k in enumerate(ints):
+        out[k] = packed_i[:, j].to(carry[k].dtype)
+    out["alive"] = out["alive"] & (torch.arange(cap, device=dev) < live)
+    return lanes, out
+
+
+def _write_back(full, lane_ids, live: int, radiance, direct):
+    """Write the first `live` slots of a narrow wave's radiance (and
+    direct) into the full-width tensors of `full` at their lanes; the slots
+    after them are padding. Returns the full-width tensors."""
+    with torch.profiler.record_function(COMPACT_RANGE):
+        lanes = lane_ids[:live]
+        full[0].index_copy_(0, lanes, radiance[:live])
+        if direct is not None:
+            full[1].index_copy_(0, lanes, direct[:live])
+    return full
 
 
 def medium_step(mediums: dict, medium_id, alive, throughput, ray_o, ray_d, t,
@@ -630,11 +745,11 @@ def medium_step(mediums: dict, medium_id, alive, throughput, ray_o, ray_d, t,
 
 def _fused_bounces(buffers, kernels, trace_closest, trace_any, pixel_index,
                    sample_index, config, width, nee_possible, ray_o, ray_d,
-                   radiance, throughput, alive, rays_traced):
+                   radiance, throughput, alive, rays_traced, bounce_log=None):
     """The fused-shade route's bounce loop (JAX fast_bounce_body): each
     bounce, bounce 0 included, is a closest-hit wave, one fused shade call
-    and the NEE shadow wave, until every lane is dead. Returns (radiance,
-    rays traced)."""
+    and the NEE shadow wave, until every lane is dead; every wave at full
+    width, as in the JAX package. Returns (radiance, rays traced)."""
     R = pixel_index.shape[0]
     dev = pixel_index.device
     prev_allow_nee = torch.zeros(R, dtype=torch.bool, device=dev)
@@ -642,7 +757,12 @@ def _fused_bounces(buffers, kernels, trace_closest, trace_any, pixel_index,
     seq_x, seq_y = buffers["seq_host"]
     zero = torch.zeros((), device=dev)
     bounce = 0
-    while bounce < config.num_bounces and bool(alive.any()):
+    while bounce < config.num_bounces:
+        live = int(alive.sum())
+        if live == 0:
+            break
+        if bounce_log is not None and bounce > 0:
+            bounce_log.append((bounce, live, R))
         rays_traced = rays_traced + alive.sum()
         hit = trace_closest(ray_o, ray_d,
                             torch.where(alive, float("inf"), zero))
@@ -724,6 +844,9 @@ class Pathtracer:
         self.rays_traced = 0
         self.magenta_pixels = 0
         self._tile_order = None
+        # Each wave's (bounce, live lanes, width) of its bounces >= 1 in the
+        # last trace (`compaction`).
+        self.bounce_widths: list = []
         # Denoised path: filter history, previous TAA frame and the previous
         # frame's view-projection, carried from frame to frame.
         self.svgf_history: Optional[svgf_ops.SVGFHistory] = None
@@ -885,15 +1008,44 @@ class Pathtracer:
         two_level = route == "wide" and wide is not None and wide.two_level
         return kernel_paths(self.kernels, self.device, two_level, route)
 
-    def _waves(self):
-        """(pixel ids, valid mask, valid count) of each wave of one sample:
-        batch_size pixels in tile order (a multiple of 1024 on the
-        fused-shade route), the tail wave clamped and masked."""
-        dev = self.device
-        num_pixels = self.width * self.height
-        wave = min(self.cpu_config.batch_size, num_pixels)
+    @property
+    def compaction(self) -> dict:
+        """The late-bounce compaction in force (render_wave
+        `compact_tiers`): the tiers and their narrow widths ("caps") on
+        the route of a batch sample (of a denoised frame when the config
+        enables SVGF) at this Pathtracer's wave size, and (bounce, live
+        lanes, width) of each bounce >= 1 of the first wave of the last
+        sample, frame or AOV export rendered ("bounces"), and how many of
+        its waves ran a bounce narrower than the wave ("waves_narrowed")."""
+        route = self.route(self.gpu_config.enable_svgf)
+        tiers = self._tiers(route)
+        return {"tiers": tiers, "caps": compact_caps(self._wave_size(), tiers),
+                "bounces": list(self.bounce_widths[0]) if self.bounce_widths else [],
+                "waves_narrowed": sum(any(w < self._wave_size() for _, _, w in log)
+                                      for log in self.bounce_widths)}
+
+    def _tiers(self, route: str) -> tuple:
+        """The compaction tiers of `route` at this Pathtracer's wave (none
+        on the fused-shade route, as in the JAX package)."""
+        if route == "binary_shade":
+            return ()
+        return default_compact_tiers(self._wave_size(), self.gpu_config)
+
+    def _wave_size(self) -> int:
+        """batch_size pixels, at most the film's (a multiple of 1024 on the
+        fused-shade route)."""
+        wave = min(self.cpu_config.batch_size, self.width * self.height)
         if self.use_pallas_shade:
             wave = max(wave // fs.BLOCK * fs.BLOCK, fs.BLOCK)
+        return wave
+
+    def _waves(self):
+        """(pixel ids, valid mask, valid count) of each wave of one sample:
+        `_wave_size()` pixels in tile order, the tail wave clamped and
+        masked."""
+        dev = self.device
+        num_pixels = self.width * self.height
+        wave = self._wave_size()
         if self._tile_order is None or self._tile_order.shape[0] != num_pixels:
             self._tile_order = torch.as_tensor(
                 tile_order(self.width, self.height).astype(np.int64), device=dev)
@@ -915,15 +1067,19 @@ class Pathtracer:
         bad = torch.zeros((), dtype=torch.int64, device=dev)
         magenta = torch.tensor([1.0, 0.0, 1.0], device=dev)
         route = self.route(denoised=with_aovs)
+        tiers = self._tiers(route)
         sample = self.sample_index if sample_index is None else sample_index
         self._take_prev_rows()
+        self.bounce_widths = []
         for idx, mask, count in self._waves():
+            self.bounce_widths.append([])
             out, n = render_wave(
                 self.buffers, camera, idx, sample, self.gpu_config,
                 self.width, self.cpu_config.seed, self.scene.has_lights,
                 with_stats=True, valid_mask=mask, mat_types=self.mat_types,
                 kernels=self.kernels, with_aovs=with_aovs, route=route,
-                has_media=self.has_media)
+                has_media=self.has_media, compact_tiers=tiers,
+                bounce_log=self.bounce_widths[-1])
             out = out if with_aovs else {"radiance": out}
             for k in names if with_aovs else ("radiance",):
                 v = out[k]

@@ -1068,3 +1068,66 @@ def test_stage_times_on_the_card(pt):
                            "trace_shadow_ms", "full_sample_ms"]
     assert all(v > 0 for v in times.values())
     assert all(v.startswith("cuda:") for v in pt.paths.values())
+
+
+def test_compacted_render_on_the_card():
+    """A compacted b10 wave of a 512x512 merged scene (tiers (2, 4, 16):
+    narrow waves of 131,072, 65,536 and 16,384 lanes) equals the
+    full-width one bit for bit, with equal ray counts; every closest-hit,
+    any-hit and shade call on a narrow wave launched its kernel and ran no
+    plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from gpu_raytracer_tpu_torch import CPUConfig, GPUConfig
+    from gpu_raytracer_tpu_torch.integrators.pathtracer import (
+        DISPATCH,
+        Pathtracer,
+        kernel_paths,
+        render_wave,
+    )
+    from gpu_raytracer_tpu_torch.ops import shade_gather as sg
+    from gpu_raytracer_tpu_torch.ops import wide_traverse as wt
+    from gpu_raytracer_tpu_torch.ops.camera_rays import camera_tensors, tile_order
+    from gpu_raytracer_tpu_torch.scenes import procedural_scene
+
+    side = 512
+    p = Pathtracer(procedural_scene(side, side, 4), CPUConfig(batch_size=side * side),
+                   GPUConfig(), device="cuda")
+    p.init_device()
+    assert p.route() == "wide" and p.gpu_config.num_bounces == 10
+    assert all(v.startswith("cuda:") for v in kernel_paths(DISPATCH, "cuda").values())
+    calls = []
+
+    def watched(role, counters):
+        fn = getattr(DISPATCH, role)
+
+        def wrapped(*args, **kw):
+            before = (sum(counters[0].values()), sum(counters[1].values()))
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            lanes = args[1].shape[0] if role != "shade" else args[2]["alive"].shape[0]
+            calls.append((role, lanes, sum(counters[0].values()) - before[0],
+                          sum(counters[1].values()) - before[1]))
+            return out
+        return wrapped
+
+    kernels = DISPATCH._replace(
+        closest=watched("closest", (wt.launches, wt.plain_calls)),
+        any=watched("any", (wt.launches, wt.plain_calls)),
+        shade=watched("shade", (sg.launches, sg.plain_calls)))
+    camera = camera_tensors(p.scene.camera.params(), "cuda")
+    pix = torch.as_tensor(tile_order(side, side).astype("int64"), device="cuda")
+    runs = []
+    for tiers in ((), (2, 4, 16)):
+        calls.clear()
+        log = []
+        out, rays = render_wave(p.buffers, camera, pix, 0, p.gpu_config, side, 0, True, True,
+                                kernels=kernels, compact_tiers=tiers, bounce_log=log)
+        runs.append((out, int(rays), log, list(calls)))
+    (full, rays_full, log_full, _), (out, rays, log, narrow_calls) = runs
+    assert all(w == side * side for _, _, w in log_full)
+    assert any(w < side * side for _, _, w in log), log
+    assert torch.equal(out, full) and rays == rays_full
+    narrow = [c for c in narrow_calls if c[1] < side * side]
+    assert {c[0] for c in narrow} == {"closest", "any", "shade"}, narrow_calls
+    assert all(launched >= 1 and plain == 0 for _, _, launched, plain in narrow), narrow

@@ -48,8 +48,16 @@ OWN = ("wt_walk_kernel", "sg_shade_kernel", "sv_variance_kernel",
        "sv_atrous_kernel", "bt_trace_kernel", "fs_shade_kernel")
 
 
-def profile_sample(step) -> dict:
-    """Profile one call of `step` (a sample or a denoised frame) after WARM."""
+def _kernels_under(event) -> list:
+    """The device kernels launched by the ops under a host event."""
+    return list(event.kernels) + [k for ch in event.cpu_children for k in _kernels_under(ch)]
+
+
+def profile_sample(step, ranges=()) -> dict:
+    """Profile one call of `step` (a sample or a denoised frame) after WARM.
+    For each name in `ranges` (a `torch.profiler.record_function` range),
+    also its calls and the launches and device ms of the kernels the ops
+    under it launched ("ranges")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -81,6 +89,12 @@ def profile_sample(step) -> dict:
     for e in device:
         by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1000.0
         by_name[e.name][1] += 1
+    annotated = {name: [e for e in prof.events()
+                        if e.name == name and e.device_type == torch.autograd.DeviceType.CPU]
+                 for name in ranges}
+    # (A range's own device span, where the profiler records one, is no kernel.)
+    kernels = {name: [k for e in es for k in _kernels_under(e) if k.name != name]
+               for name, es in annotated.items()}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     top = ranked[:TOP] + [kv for kv in ranked[TOP:]
                           if any(k in kv[0] for k in OWN)]
@@ -88,7 +102,10 @@ def profile_sample(step) -> dict:
             "idle_share": 1.0 - busy_us / 1000.0 / wall_ms,
             "device_events": len(device), "host_launches": launches,
             "host_launch_ms": launch_us / 1000.0,
-            "top": [{"name": n, "ms": v[0], "count": v[1]} for n, v in top]}
+            "top": [{"name": n, "ms": v[0], "count": v[1]} for n, v in top],
+            "ranges": {name: {"calls": len(annotated[name]), "launches": len(ks),
+                              "device_ms": sum(k.duration for k in ks) / 1000.0}
+                       for name, ks in kernels.items()}}
 
 
 def main(argv) -> int:
