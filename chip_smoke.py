@@ -107,8 +107,12 @@ nonzero):
      traversal run to its end against K2 on the same wave and on the primary
      wave (equal hits, ties aside), both timed; pf_lane and pf_window in
      every mode at the probes' sizes (seeded numpy; 1 tile and 760 tiles)
-     against their plain versions, exactly, timed beside one `index_select`
-     of the same values; and the glue's `fetch_rows(shade_rows, hit_tri)` on
+     and on fetch.EDGE_CASES against their plain versions, exactly, each
+     with the path its launcher took (pf_lane staged, in place or quad;
+     what a window stages and its ring depths), timed beside one `index_select` of the same
+     values (gather only) and, for pf_lane col0 and rowsum, one
+     `embedding_bag` (the same sums), with the share of the bound; and the
+     glue's `fetch_rows(shade_rows, hit_tri)` on
      the wave as pf_lane rows against `index_select` (the library time of
      pf_lane; int64 `index_select` and `shade_rows[idx]` timed beside). Then
      the single-block probes (tools/exp_blocksync.py, exp_scalar_read.py,
@@ -755,17 +759,18 @@ def phase_stream_kernels(pt, merged, results: dict) -> None:
 
 def _probe_text(row: dict) -> str:
     return ", ".join(f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
-                     for k, v in row.items() if k not in ("probe", "device"))
+                     for k, v in row.items() if k not in ("probe", "device", "path"))
 
 
 def phase_probes(pt, results: dict) -> None:
     """Phase 3pr on the merged scene's tables and its bounce-1 wave: the gang
     probes (ablation variants, the run to the end against K2, the micro
     stages) and the fetch probes (every case at 1 and PROBE_TILES tiles, the
-    glue's row gather), each kernel against its plain version, timed, with
-    bounds. The kernels line takes `full` (pg_ablate), `push` (pg_micro), the
-    glue's row gather (pf_lane, with `index_select` as its library call) and
-    exp_gather.py B f32 at 512 rows on PROBE_TILES tiles (pf_window)."""
+    edge cases, the glue's row gather), each kernel against its plain
+    version, timed, with bounds and the path each launch took. The kernels
+    line takes `full` (pg_ablate), `push` (pg_micro), the glue's row gather
+    (pf_lane, with `index_select` as its library call) and exp_gather.py B
+    f32 at 512 rows on PROBE_TILES tiles (pf_window)."""
     from gpu_raytracer_tpu_torch import probes
     from gpu_raytracer_tpu_torch.integrators.pathtracer import DISPATCH
     from gpu_raytracer_tpu_torch.probes import fetch, gang
@@ -800,13 +805,18 @@ def phase_probes(pt, results: dict) -> None:
     for tiles in (1, PROBE_TILES):
         for r in fetch.probe_fetches("cuda", fetch.ITERS, tiles, timer=timer):
             r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"])
+            r["bound_share"] = r["bound_ms"] / r["ms"]
             say("3pr", f"{r['kernel']}<{r['mode']}> {r['probe']}, {r['indices']} indices, "
-                       f"{tiles} tile(s): parity ok (exact); {_probe_text(r)}")
+                       f"{tiles} tile(s), path {r['path']}: parity ok (exact); "
+                       f"{_probe_text(r)}")
             if (tiles == PROBE_TILES and r["probe"] == "exp_gather.py:100 B f32"
                     and r["indices"] == "coherent"):
                 results["pf_window"] = {"max_abs_err": 0.0, "ms": r["ms"],
                                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                                         "bound_by": r["bound_by"], "library_ms": None}
+    for r in fetch.edge_fetches("cuda"):
+        say("3pr", f"{r['kernel']}<{r['mode']}> {r['probe']}, {r['lanes']} lanes, {r['iters']} "
+                   f"iterations, path {r['path']} {r['launch']}: parity ok (exact)")
     g = fetch.glue_fetch(got["shade_rows"], got["hit_tri"], timer=timer)
     g["bound_ms"], g["bound_by"] = bound(g["bytes"], g["ops"])
     results["pf_lane"] = {"max_abs_err": 0.0, "ms": g["ms"], "plain_ms": g["plain_ms"],

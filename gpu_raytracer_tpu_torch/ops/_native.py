@@ -192,10 +192,13 @@ def load() -> ctypes.CDLL:
     lib.pg_ablate.argtypes = [ci, vp, ci, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp]
     lib.pg_micro.restype = ci
     lib.pg_micro.argtypes = [ci, vp, ci, vp, ci, ci, vp, vp]
+    pi = ctypes.POINTER(ci)
     lib.pf_lane.restype = ci
-    lib.pf_lane.argtypes = [ci, vp, ci, ci, vp, ci, ci, vp, vp]
+    lib.pf_lane.argtypes = [ci, vp, ci, ci, vp, ci, ci, vp, ci, vp, pi, vp]
     lib.pf_window.restype = ci
-    lib.pf_window.argtypes = [ci, vp, ci, ci, vp, ci, ci, ci, vp, vp]
+    lib.pf_window.argtypes = [ci, vp, ci, ci, vp, ci, ci, ci, vp, ci, vp, pi, vp]
+    lib.pf_col_floats.restype = ci
+    lib.pf_col_floats.argtypes = [ci]
     for fn in (lib.pb_layout, lib.pr_layout, lib.pp_layout, lib.pd_layout):
         fn.restype = ci
         fn.argtypes = [ci]
@@ -248,7 +251,8 @@ def load() -> ctypes.CDLL:
           gang.MICRO_CAP)
     if tuple(lib.pg_layout(k) for k in range(len(pg))) != pg:
         raise RuntimeError("probe_gang.cu layout constants != probes/gang.py")
-    pf = (fetch.TILE, len(fetch.LANE_MODES), len(fetch.WINDOW_MODES), fetch.ROW_LANES)
+    pf = (fetch.TILE, len(fetch.LANE_MODES), len(fetch.WINDOW_MODES), fetch.ROW_LANES,
+          len(fetch.LANE_PATHS))
     if tuple(lib.pf_layout(k) for k in range(len(pf))) != pf:
         raise RuntimeError("probe_fetch.cu layout constants != probes/fetch.py")
     for src, fn, want in (

@@ -45,19 +45,40 @@ On a CUDA tensor `lane_fetch` / `window_fetch` launch `csrc/probe_fetch.cu`
 and raise if they cannot; on a CPU tensor they run the plain PyTorch
 versions (`*_plain`), which apply the same arithmetic in the same order
 (so kernel and plain agree exactly).
+
+How the card computes them (csrc/probe_fetch.cu, which holds the choices):
+`pf_lane` takes a path (`LANE_PATHS`) from the mode, the table's bytes and
+the lane count: the values its mode reads staged in shared memory where
+they fit the card's opt-in limit (column 0 for col0, the table for
+sublane, the rows and then one sum a row for rowsum), or read in place;
+`pf_window` stages each window by TMA bulk copy (`WINDOW_PATHS`: column 0
+for the column modes where every lane of the tile falls in the window, else
+each lane reads in place; the whole rows for rowsum and copy), its index
+tiles and windows in rings that a producer warp fills ahead of the
+consumer warps. Each launch reports what it took in `last_path`.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from gpu_raytracer_tpu_torch.ops import _native
-from gpu_raytracer_tpu_torch.probes import c_ptr, c_stream
+from gpu_raytracer_tpu_torch.probes import c_ptr, c_stream, median_ms
 
 TILE = 1024         # lanes of one (8, 128) TPU tile, one block of pf_window
 ROW_LANES = 128
 LANE_MODES = ("col0", "lane", "rowsum", "sublane", "rows")
 WINDOW_MODES = ("col0", "col0_bf16", "rowsum", "copy")
+COLUMN_MODES = ("col0", "col0_bf16")
+# pf_lane's paths (csrc/probe_fetch.cu P_*): one lane a thread in place;
+# staged in shared memory; rowsum of a large table read in place, a row by a
+# quad of threads.
+LANE_PATHS = ("in_place", "staged", "quad")
+# What a pf_window window stages (WP_*): column 0 (the column modes, read in
+# place on an iteration whose lanes do not all fall in the window), or rows.
+WINDOW_PATHS = ("column", "rows")
 # The JAX probes' sizes (tools/exp_gather.py, exp_gather2.py).
 N = 160_000
 ROWS = 16
@@ -65,6 +86,9 @@ ITERS = 64
 
 launches = {"pf_lane": 0, "pf_window": 0}
 plain_calls = {"pf_lane": 0, "pf_window": 0}
+# What the last launch of each kernel ran (its path and shape), as the
+# launcher reported it.
+last_path = {"pf_lane": None, "pf_window": None}
 
 
 def _row_sum(rows: torch.Tensor) -> torch.Tensor:
@@ -166,6 +190,8 @@ def _on_card(table: torch.Tensor, idx: torch.Tensor):
     table, idx = table.contiguous(), idx.contiguous()
     if table.data_ptr() % 16:
         raise ValueError("the table must be 16-byte aligned")
+    if idx.data_ptr() % 16:  # pf_window bulk-copies index rows from 16-byte addresses
+        idx = idx.clone()
     return table, idx, c_stream(table.device)
 
 
@@ -178,26 +204,43 @@ def lane_fetch_kernel(table: torch.Tensor, idx: torch.Tensor, mode: str) -> torc
     M, C = table.shape
     out = torch.empty((R, C) if mode == "rows" else R, dtype=torch.float32,
                       device=table.device)
+    col = (torch.empty(lib.pf_col_floats(M), dtype=torch.float32, device=table.device)
+           if mode == "col0" else None)
+    info = (ctypes.c_int * 4)()
     err = lib.pf_lane(LANE_MODES.index(mode), c_ptr(table), M, C, c_ptr(idx), iters, R,
-                      c_ptr(out), stream)
+                      c_ptr(col), 0 if col is None else col.numel(), c_ptr(out), info, stream)
     _native.check(err, f"probe_fetch.pf_lane<{mode}>")
     launches["pf_lane"] += 1
+    last_path["pf_lane"] = {"path": LANE_PATHS[info[0]], "blocks": info[1],
+                            "blocks_per_sm": info[2], "smem": info[3]}
     return out
 
 
 def window_fetch_kernel(table: torch.Tensor, idx: torch.Tensor, mode: str,
                         chunk: int) -> torch.Tensor:
-    """Launch `pf_window<mode>` on CUDA tensors (raises otherwise)."""
+    """Launch `pf_window<mode>` on CUDA tensors (raises otherwise; a window
+    whose smallest ring does not fit the card's shared memory a block
+    raises ValueError)."""
     _check_window(table, idx, mode, chunk)
     table, idx, stream = _on_card(table, idx)
     lib = _native.load()
     iters, R = idx.shape
+    N, C = table.shape
     out = torch.empty(R, dtype=torch.float32, device=table.device)
-    err = lib.pf_window(WINDOW_MODES.index(mode), c_ptr(table), table.shape[0],
-                        table.shape[1], c_ptr(idx), iters, R // TILE, int(chunk), c_ptr(out),
-                        stream)
+    col = (torch.empty(lib.pf_col_floats(N), dtype=torch.float32, device=table.device)
+           if mode in COLUMN_MODES else None)
+    info = (ctypes.c_int * 5)()
+    err = lib.pf_window(WINDOW_MODES.index(mode), c_ptr(table), N, C, c_ptr(idx), iters,
+                        R // TILE, int(chunk), c_ptr(col), 0 if col is None else col.numel(),
+                        c_ptr(out), info, stream)
+    if err and info[4] > info[3] > 0:
+        raise ValueError(f"pf_window<{mode}>: a window of {chunk} rows of {C} columns needs "
+                         f"{info[4]} bytes of shared memory a block at the least (one window, "
+                         f"two index tiles), over the card's {info[3]}")
     _native.check(err, f"probe_fetch.pf_window<{mode}>")
     launches["pf_window"] += 1
+    last_path["pf_window"] = {"path": WINDOW_PATHS[info[0]], "ahead": info[1],
+                              "depth": info[2], "blocks_per_sm": info[3], "smem": info[4]}
     return out
 
 
@@ -338,30 +381,47 @@ def probe_idx(rng, kind: str, iters: int, tiles: int, n: int, chunk: int):
     return np.repeat(lo, TILE, axis=2).reshape(iters, tiles * TILE)
 
 
-def library_fetch(table: torch.Tensor, idx: torch.Tensor, mode: str):
-    """One `index_select` that gathers the table values a mode fetches
-    (every lane, every iteration; no sum, no window), or None where no one
-    call gathers them (lane, sublane: the column depends on the lane; copy)."""
-    if mode in ("col0", "col0_bf16"):
-        return lambda: torch.index_select(table[:, 0], 0, idx.view(-1))
-    if mode in ("rowsum", "rows"):
-        return lambda: table.index_select(0, idx.view(-1))
-    return None
+def library_fetch(table: torch.Tensor, idx: torch.Tensor, kind: str, mode: str) -> dict:
+    """The library yardsticks of a case, {name: call}:
+    `index_select`, one call that gathers the table values a mode fetches
+    (every lane, every iteration; no sum, no window; gather only), where one
+    call gathers them (not lane, sublane: the column depends on the lane; not
+    copy); `embedding_bag`, one call that computes pf_lane's function (each
+    lane's sum of its fetches; the bag of a lane is its column of idx), for
+    col0 and for rowsum with the row's column sum as a second call. No one
+    call computes a window's masked sum."""
+    import torch.nn.functional as F
+
+    calls = {}
+    if mode in COLUMN_MODES:
+        calls["index_select"] = lambda: torch.index_select(table[:, 0], 0, idx.view(-1))
+    elif mode in ("rowsum", "rows"):
+        calls["index_select"] = lambda: table.index_select(0, idx.view(-1))
+    if kind == "lane" and mode == "col0":
+        calls["embedding_bag"] = lambda: F.embedding_bag(idx.t(), table[:, :1], mode="sum")
+    elif kind == "lane" and mode == "rowsum":
+        calls["embedding_bag"] = lambda: F.embedding_bag(idx.t(), table, mode="sum").sum(1)
+    return calls
 
 
 def fetch_case(table, idx, kind: str, mode: str, chunk: int, timer=None) -> dict:
     """One fetch run: on a CUDA table the kernel against its plain version
-    (exactly equal) and, with `timer`, the kernel's and the library gather's
-    ms (medians), ns per fetch, and the bytes and operations it needs; on a
-    CPU table the plain version. Returns the result and the output."""
+    (exactly equal), the path it took and, with `timer`, the kernel's and
+    the library yardsticks' ms (medians; `library_ms` is `index_select`'s),
+    ns per fetch, and the bytes and operations it needs. On a CPU table the
+    plain version. Returns the result and the output."""
     iters, R = idx.shape
     run = ((lambda: lane_fetch(table, idx, mode)) if kind == "lane"
            else (lambda: window_fetch(table, idx, mode, chunk)))
     out = run()
     row = {"kernel": "pf_" + kind, "mode": mode, "chunk": chunk or None,
            "table": list(table.shape), "iters": iters, "lanes": R,
-           "device": table.device.type, "ms": None, "library_ms": None}
+           "device": table.device.type, "path": "plain", "ms": None, "library_ms": None,
+           "embedding_bag_ms": None}
     if table.device.type == "cuda":
+        launch = last_path["pf_" + kind]
+        row["path"] = launch["path"]
+        row["launch"] = {k: v for k, v in launch.items() if k != "path"}
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         ref = (lane_fetch_plain(table, idx, mode) if kind == "lane"
@@ -373,13 +433,11 @@ def fetch_case(table, idx, kind: str, mode: str, chunk: int, timer=None) -> dict
             raise AssertionError(f"pf_{kind}<{mode}> differs from its plain version on "
                                  f"{int((out != ref).sum())} values")
         if timer is not None:
-            ms = sorted(timer(run))
-            row.update(ms=ms[len(ms) // 2], ms_spread=[ms[0], ms[-1]],
-                       ns_per_fetch=1e6 * ms[len(ms) // 2] / (iters * R))
-            lib = library_fetch(table, idx, mode)
-            if lib is not None:
-                lms = sorted(timer(lib))
-                row["library_ms"] = lms[len(lms) // 2]
+            row.update(median_ms(timer, run))
+            row["ns_per_fetch"] = 1e6 * row["ms"] / (iters * R)
+            for name, call in library_fetch(table, idx, kind, mode).items():
+                key = "library_ms" if name == "index_select" else name + "_ms"
+                row[key] = median_ms(timer, call)["ms"]
     row["bytes"] = needed_bytes(table, idx, mode, kind == "window", chunk)
     row["ops"] = iters * R * (table.shape[1] if mode in ("rowsum", "rows") else 1)
     if kind == "window":
@@ -409,6 +467,94 @@ def probe_fetches(device, iters: int = ITERS, tiles: int = 1, seed: int = 0,
                                            device=device)
         row, _ = fetch_case(table, indices[key], kind, mode, chunk, timer)
         rows.append({"probe": site, "indices": ikind, **row})
+    return rows
+
+
+# The input edges a pipelined kernel can get wrong, at a small size:
+# (name, kernel, mode, chunk, table (rows, columns), iters, lanes, indices);
+# 20-column rows have a fifth column group past the rotated four (quad: a
+# second round of the warp buffer), 12-column ones fill three of a quad's
+# four. The launchers' choices are crossed too: windows whose deepest rings
+# do not fit shared memory (1,100 rows of 16 columns; 2,500 take the
+# one-window ring), and lane counts that fill every SM at 4 lanes a thread
+# (400,000: staged sublane, quad row sums of tables over 1 MiB).
+# Indices (edge_idx): `uniform` over the rows; `window` a centre a tile and
+# iteration plus a spread under the chunk; `top` in the last half chunk of
+# rows (lo clamps to N - chunk); `outside` tile 0 past the table's last row
+# (every lane outside its window), the other tiles `window`; `dynamic` one
+# copy offset a tile and iteration, uniform in [0, N - chunk]; `turns`
+# `window` in even iterations and `uniform` in odd ones.
+EDGE_CASES = (
+    ("one iteration", "window", "col0", 16, (64, 4), 1, 1024, "window"),
+    ("odd iterations, rows", "window", "rowsum", 16, (64, 20), 5, 2048, "window"),
+    ("odd iterations, bf16", "window", "col0_bf16", 32, (200, 4), 7, 1024, "uniform"),
+    ("lo clamped at N - chunk", "window", "col0", 32, (100, 4), 3, 2048, "top"),
+    ("lo clamped, rows", "window", "rowsum", 32, (100, 4), 3, 1024, "top"),
+    ("every lane outside", "window", "col0", 16, (64, 4), 3, 2048, "outside"),
+    ("copy, dynamic offsets", "window", "copy", 16, (64, 4), 5, 3072, "dynamic"),
+    ("three tiles", "window", "col0_bf16", 8, (40, 4), 2, 3072, "window"),
+    ("staged and in place by turns", "window", "col0", 16, (64, 4), 6, 2048, "turns"),
+    ("window past the deepest ring", "window", "rowsum", 1100, (1200, 16), 2, 2048, "window"),
+    ("one-window ring", "window", "rowsum", 2500, (2600, 16), 3, 2048, "window"),
+    ("one iteration, lanes", "lane", "col0", 0, (50, 4), 1, 1024, "uniform"),
+    ("odd iterations, ragged lanes", "lane", "col0", 0, (50, 4), 5, 4099, "uniform"),
+    ("odd iterations, row sums", "lane", "rowsum", 0, (30, 20), 7, 1030, "uniform"),
+    ("row sums past the staging limit", "lane", "rowsum", 0, (5000, 12), 3, 1030, "uniform"),
+    ("wide row sums past the staging limit", "lane", "rowsum", 0, (3000, 20), 3, 1030,
+     "uniform"),
+    ("ragged lanes, sublane", "lane", "sublane", 0, (8, 128), 3, 1027, "uniform"),
+    ("ragged lanes, lane", "lane", "lane", 0, (3, 128), 6, 2050, "uniform"),
+    ("more lanes than one grid", "lane", "col0", 0, (64, 4), 3, 1_200_000, "uniform"),
+    ("more lanes than one grid, ragged", "lane", "rowsum", 0, (64, 4), 2, 1_200_003, "uniform"),
+    ("staged sublane", "lane", "sublane", 0, (64, 128), 2, 400_000, "uniform"),
+    ("quad row sums", "lane", "rowsum", 0, (25_000, 12), 3, 400_003, "uniform"),
+    ("quad row sums, five column groups", "lane", "rowsum", 0, (15_000, 20), 2, 400_001,
+     "uniform"),
+)
+
+
+def edge_idx(rng, kind: str, iters: int, lanes: int, n: int, chunk: int):
+    """(iters, lanes) int32 indices into n rows for EDGE_CASES (seeded
+    numpy)."""
+    import numpy as np
+
+    tiles = max(lanes // TILE, 1)
+    if kind == "uniform":
+        return rng.integers(0, n, (iters, lanes), dtype=np.int32)
+    if kind == "top":
+        return rng.integers(n - chunk // 2, n, (iters, lanes), dtype=np.int32)
+    if kind == "dynamic":
+        lo = rng.integers(0, n - chunk + 1, (iters, tiles, 1), dtype=np.int32)
+        return np.repeat(lo, TILE, axis=2).reshape(iters, lanes)
+    centres = rng.integers(0, n - chunk + 1, (iters, tiles, 1), dtype=np.int32)
+    out = centres + rng.integers(0, chunk, (iters, tiles, TILE), dtype=np.int32)
+    if kind == "turns":
+        out[1::2] = rng.integers(0, n, out[1::2].shape, dtype=np.int32)
+    if kind == "outside":
+        out[:, 0] = rng.integers(n, n + 3 * chunk, (iters, TILE), dtype=np.int32)
+    return out.reshape(iters, lanes)
+
+
+def edge_inputs(rng, case) -> tuple:
+    """(table, idx) as numpy arrays for one case of EDGE_CASES."""
+    import numpy as np
+
+    _, _, _, chunk, shape, iters, lanes, kind = case
+    table = rng.random(shape, dtype=np.float32)
+    return table, edge_idx(rng, kind, iters, lanes, shape[0], chunk)
+
+
+def edge_fetches(device, seed: int = 0) -> list:
+    """Every case of EDGE_CASES through fetch_case on `device` (on the card:
+    kernel against plain, exactly, with the path it took)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for case in EDGE_CASES:
+        table, idx = (torch.as_tensor(x, device=device) for x in edge_inputs(rng, case))
+        row, _ = fetch_case(table, idx, case[1], case[2], case[3])
+        rows.append({"probe": "edge: " + case[0], "indices": case[7], **row})
     return rows
 
 

@@ -813,16 +813,104 @@ def test_probe_gang_micro_kernel_matches_plain(probe_wave, stage):
 
 
 def test_probe_fetch_kernels_match_plain(probe_wave):
-    """Every fetch case at the probes' sizes on 2 tiles, 8 iterations, and
-    the glue's row gather (pf_lane rows) against index_select."""
+    """Every fetch case at the probes' sizes on 2 tiles, 8 iterations, every
+    edge case (fetch.EDGE_CASES), and the glue's row gather (pf_lane rows)
+    against index_select: kernel against plain with torch.equal
+    (fetch_case), each on its kernel, with the path its launcher reported:
+    pf_lane stages only what fits and reads quads only for row sums of
+    tables over 1 MiB, pf_window stages column 0 for the column modes and
+    rows otherwise, in a ring that fits the card."""
     from gpu_raytracer_tpu_torch.probes import fetch
 
     before = dict(fetch.launches)
     rows = fetch.probe_fetches("cuda", 8, 2)
     assert len(rows) == len(fetch.CASES)
+    edges = fetch.edge_fetches("cuda")
+    assert len(edges) == len(fetch.EDGE_CASES)
+    lane_paths = set()
+    for r in rows + edges:
+        M, C = r["table"]
+        if r["kernel"] == "pf_lane":
+            lane_paths.add(r["path"])
+            assert r["path"] in fetch.LANE_PATHS
+            if r["mode"] == "lane":
+                assert r["path"] == "in_place"
+            if r["path"] == "quad":
+                assert r["mode"] == "rowsum" and 4 * M * C > 1 << 20
+            if r["path"] == "staged":
+                assert r["launch"]["smem"] >= 4 * M * (C + 1 if r["mode"] == "rowsum" else
+                                                       1 if r["mode"] == "col0" else C)
+        else:
+            assert r["path"] == ("column" if r["mode"] in fetch.COLUMN_MODES else "rows")
+            assert r["launch"]["ahead"] >= 0 and r["launch"]["depth"] >= 1
+    assert lane_paths == set(fetch.LANE_PATHS)
+    by_name = {r["probe"]: r for r in edges}
+    assert by_name["edge: one-window ring"]["launch"]["ahead"] == 0
+    deep = by_name["edge: window past the deepest ring"]["launch"]
+    assert deep["ahead"] >= 1 and (deep["ahead"], deep["depth"]) != (2, 3)
+    assert by_name["edge: staged sublane"]["path"] == "staged"
+    assert by_name["edge: quad row sums"]["path"] == "quad"
     fetch.glue_fetch(probe_wave["shade_rows"], probe_wave["hit_tri"])
-    assert fetch.launches["pf_lane"] > before["pf_lane"]
-    assert fetch.launches["pf_window"] > before["pf_window"]
+    assert fetch.last_path["pf_lane"]["path"] == "in_place"
+    assert fetch.launches["pf_window"] - before["pf_window"] == sum(
+        r["kernel"] == "pf_window" for r in rows + edges)
+    assert fetch.launches["pf_lane"] - before["pf_lane"] == 1 + sum(
+        r["kernel"] == "pf_lane" for r in rows + edges)
+
+
+@pytest.mark.parametrize("mode, cols", [("col0", 4), ("rowsum", 16)])
+def test_probe_fetch_lane_each_side_of_the_staging_limit(mode, cols):
+    """pf_lane on enough lanes to fill every SM at 4 lanes a thread, on the
+    largest table it stages and on one 4 rows larger, which it reads in
+    place: each equals the plain version (torch.equal), and the path each
+    reported is the one the card's opt-in shared memory gives (less 128
+    bytes; col0 stages 4 bytes a row, rowsum the row and its sum)."""
+    _needs_card()
+    import numpy as np
+
+    from gpu_raytracer_tpu_torch.ops import _native
+    from gpu_raytracer_tpu_torch.probes import fetch
+
+    optin = _native.load().pr_smem_optin()
+    per_row = 4 if mode == "col0" else 4 * (cols + 1)
+    rows_in = (optin - 128) // per_row // 4 * 4
+    lanes = 4 * 512 * torch.cuda.get_device_properties(0).multi_processor_count + 5
+    rng = np.random.default_rng(11)
+    for M, path in ((rows_in, "staged"), (rows_in + 4, "in_place")):
+        table = torch.as_tensor(rng.random((M, cols), dtype=np.float32), device="cuda")
+        idx = torch.as_tensor(rng.integers(0, M, (3, lanes), dtype=np.int32), device="cuda")
+        before = fetch.launches["pf_lane"]
+        row, _ = fetch.fetch_case(table, idx, "lane", mode, 0)
+        assert fetch.launches["pf_lane"] == before + 1
+        assert row["path"] == path
+
+
+def test_probe_fetch_unaligned_idx_and_oversized_window():
+    """An index view 4 bytes past a 16-byte boundary (pf_window bulk-copies
+    index rows, which need 16-byte sources) runs and equals the plain
+    version; a window whose smallest ring does not fit the card's shared
+    memory raises ValueError before any launch."""
+    _needs_card()
+    import numpy as np
+
+    from gpu_raytracer_tpu_torch.probes import fetch
+
+    rng = np.random.default_rng(5)
+    table = torch.as_tensor(rng.random((600, 16), dtype=np.float32), device="cuda")
+    iters, R = 3, 2048
+    flat = torch.as_tensor(rng.integers(0, 600, iters * R + 1, dtype=np.int32), device="cuda")
+    idx = flat[1:].view(iters, R)
+    assert idx.is_contiguous() and idx.data_ptr() % 16 == 4
+    for kind, mode, chunk in (("window", "col0", 64), ("window", "rowsum", 64),
+                              ("window", "copy", 64), ("lane", "col0", 0),
+                              ("lane", "rowsum", 0)):
+        before = fetch.launches["pf_" + kind]
+        fetch.fetch_case(table, idx, kind, mode, chunk)  # torch.equal to the plain version
+        assert fetch.launches["pf_" + kind] == before + 1
+    big = torch.zeros((5000, 16), device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        fetch.window_fetch(big, torch.zeros((1, 1024), dtype=torch.int32, device="cuda"),
+                           "rowsum", 4000)
 
 
 def _needs_card():

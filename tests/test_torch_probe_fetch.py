@@ -202,3 +202,121 @@ def test_entry_point_runs_on_cpu():
     assert lines[-1]["mode"] == "rows" and lines[-1]["lanes"] == 64 * 32
     window = [x for x in lines if x["kernel"] == "pf_window" and x["indices"] == "coherent"]
     assert window and all(x["inside"] == 1.0 for x in window)
+
+
+# ---------------------------------------------------------------------------
+# The input edges a pipelined kernel can get wrong (fetch.EDGE_CASES, which
+# the card test runs kernel against plain): the plain versions held to a
+# numpy reference written here, exactly.
+# ---------------------------------------------------------------------------
+
+def _np_bf16(x: np.ndarray) -> np.ndarray:
+    """float32 -> bfloat16 -> float32, round to nearest even (finite x)."""
+    u = x.astype(np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _np_row_sums(rows: np.ndarray) -> np.ndarray:
+    s = np.zeros(rows.shape[:-1], np.float32)
+    for c in range(rows.shape[-1]):
+        s = s + rows[..., c]
+    return s
+
+
+def _np_lane(table: np.ndarray, idx: np.ndarray, mode: str) -> np.ndarray:
+    M = table.shape[0]
+    r = np.arange(idx.shape[1])
+    acc = np.zeros(idx.shape[1], np.float32)
+    for j in idx:
+        if mode == "col0":
+            v = table[j, 0]
+        elif mode == "lane":
+            v = table[(r // 128) % M, j % 128]
+        elif mode == "sublane":
+            v = table[j, r % 128]
+        else:
+            v = _np_row_sums(table[j])
+        acc = acc + v
+    return acc
+
+
+def _np_window(table: np.ndarray, idx: np.ndarray, mode: str, chunk: int) -> np.ndarray:
+    N = table.shape[0]
+    iters, R = idx.shape
+    acc = np.zeros((R // 1024, 1024), np.float32)
+    for i in range(iters):
+        for t in range(R // 1024):
+            j = idx[i, t * 1024:(t + 1) * 1024]
+            lo = min(int(j.min()), N - chunk)
+            inside = (j >= lo) & (j < lo + chunk)
+            row = table[np.where(inside, j, lo)]
+            if mode == "copy":
+                v = np.full(1024, table[lo, 0], np.float32)
+            elif mode == "rowsum":
+                v = np.where(inside, _np_row_sums(row), np.float32(0))
+            else:
+                col = _np_bf16(row[:, 0]) if mode == "col0_bf16" else row[:, 0]
+                v = np.where(inside, col, np.float32(0))
+            acc[t] = acc[t] + v
+    return acc.reshape(R)
+
+
+@pytest.mark.parametrize("case", fetch.EDGE_CASES, ids=[c[0] for c in fetch.EDGE_CASES])
+def test_edge_cases_plain_match_numpy(case):
+    """Each edge (one or an odd number of iterations, lo clamped at N -
+    chunk, a tile with every lane outside its window, copies at dynamic
+    offsets, tile and lane counts no grid divides): the plain version
+    equals the numpy reference exactly, and the edge is really there."""
+    name, kind, mode, chunk, shape, iters, lanes, ikind = case
+    table, idx = fetch.edge_inputs(np.random.default_rng(7), case)
+    assert table.shape == shape and idx.shape == (iters, lanes) and idx.dtype == np.int32
+    if kind == "lane":
+        ours = fetch.lane_fetch_plain(torch.as_tensor(table), torch.as_tensor(idx), mode)
+        want = _np_lane(table, idx, mode)
+    else:
+        ours = fetch.window_fetch_plain(torch.as_tensor(table), torch.as_tensor(idx), mode, chunk)
+        want = _np_window(table, idx, mode, chunk)
+        tile_min = idx.reshape(iters, -1, 1024).min(axis=2)
+        if ikind == "top":
+            assert (tile_min > shape[0] - chunk).all()  # lo is clamped
+        if ikind == "outside":
+            assert (idx.reshape(iters, -1, 1024)[:, 0] >= shape[0]).all()
+            assert (ours[:1024] == 0).all() and (ours[1024:] != 0).all()
+        if ikind == "dynamic":
+            assert len(np.unique(tile_min)) > 1
+    np.testing.assert_array_equal(ours.numpy(), want)
+    assert (want != 0).any()
+
+
+def test_path_names_follow_the_kernel_source():
+    """The paths the launchers report come back as names: LANE_PATHS and
+    WINDOW_PATHS list csrc/probe_fetch.cu's P_* and WP_* enums in order (the
+    card's layout check counts only P_COUNT)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(fetch.__file__).parents[1] / "csrc" / "probe_fetch.cu").read_text()
+    lane = re.search(r"enum \{ (P_\w+(?:, P_\w+)*) \};", src).group(1).split(", ")
+    window = re.search(r"enum \{ (WP_\w+(?:, WP_\w+)*) \};", src).group(1).split(", ")
+    assert lane[-1] == "P_COUNT"
+    assert [n.lower() for n in lane[:-1]] == ["p_" + p for p in fetch.LANE_PATHS]
+    assert [n.lower() for n in window] == ["wp_" + p for p in fetch.WINDOW_PATHS]
+
+
+@pytest.mark.parametrize("mode", ["col0", "rowsum"])
+def test_embedding_bag_yardstick_computes_the_lane_sums(mode):
+    """The library yardstick `embedding_bag` gives each lane its sum of
+    fetches (rowsum: with its column sum as the second call), which is
+    pf_lane's function; `index_select` only gathers."""
+    rng = np.random.default_rng(3)
+    table = torch.as_tensor(rng.random((300, 16), dtype=np.float32))
+    idx = torch.as_tensor(rng.integers(0, 300, (6, 2048), dtype=np.int32))
+    calls = fetch.library_fetch(table, idx, "lane", mode)
+    assert set(calls) == {"index_select", "embedding_bag"}
+    got = calls["embedding_bag"]().reshape(-1)
+    np.testing.assert_allclose(got.numpy(), fetch.lane_fetch_plain(table, idx, mode).numpy(),
+                               rtol=1e-5)
+    assert calls["index_select"]().numel() == idx.numel() * (16 if mode == "rowsum" else 1)
+    assert set(fetch.library_fetch(table, idx, "window", "col0")) == {"index_select"}
+    assert fetch.library_fetch(table, idx, "window", "copy") == {}
