@@ -120,7 +120,9 @@ nonzero):
      inputs from seeded numpy, each against its plain version (bit-equal;
      copies exact) and timed: pb_pop on the own and the 1e29-scaled table;
      pr_read, every body (the roll read in place and staged in shared
-     memory) beside one `index_select`; the shared-memory ceiling, which
+     memory) beside one `index_select` (the gather alone) and one
+     `embedding_bag` of the values read as one summed bag (the kernels
+     line's library call); the shared-memory ceiling, which
      must equal cudaDevAttrMaxSharedMemoryPerBlockOptin with 16 bytes more
      refused; pp_gang, 11 bodies at the probes' iteration counts on the own
      and a chase table, `full` also on the own table times 1e4 (parity
@@ -841,7 +843,8 @@ def phase_probes_small(results: dict) -> None:
     own sizes, inputs from seeded numpy, each launch against its plain
     version (bit-equal; copies exact) and timed: the pop loop on the own and
     the scaled table; every scalar-read body (the roll in both spaces) beside
-    one `index_select` of its values; the shared-memory ceiling against the
+    one `index_select` of its values and one `embedding_bag` summing them (the
+    kernels line's library call); the shared-memory ceiling against the
     device attribute; every gang-primitive body at the probes' iteration
     counts on the own and the chase tables, `full` on the table times 1e4
     (parity at 256 iterations); every
@@ -863,7 +866,7 @@ def phase_probes_small(results: dict) -> None:
         if r["table"] == "own":
             results["pb_pop"] = row
     for r in read.probe_reads("cuda", timer=timer):
-        row = _kernel_row(r, r["library_ms"])
+        row = _kernel_row(r, r["embedding_bag_ms"])
         say("3pr", f"pr_read<{r['body']}, {r['space']}> {r['probe']}: parity ok (bit-equal); "
                    f"{_probe_text(r)}")
         if r["body"] == "A":
@@ -2496,6 +2499,7 @@ def main() -> int:
     from gpu_raytracer_tpu_torch.ops import stream_traverse as st
     from gpu_raytracer_tpu_torch.ops import svgf_stencil as sv
     from gpu_raytracer_tpu_torch.ops import wide_traverse as wt
+    from gpu_raytracer_tpu_torch.probes import gang, read
     from gpu_raytracer_tpu_torch.scenes import (
         cornell_scene,
         instanced_scene,
@@ -2576,7 +2580,7 @@ def main() -> int:
              f"sources in {info['seconds']:.2f} s")
     for ln in regs:
         say("2", f"ptxas: {ln}")
-    for prefix in ("wt_", "bt_", "sv_", "fs_", "sg_"):
+    for prefix in ("wt_", "bt_", "sv_", "fs_", "sg_", "pg_ablate", "pr_read"):
         for name, lines in _native.ptxas_report(info["log"], prefix).items():
             say("2", f"ptxas {name}: {'; '.join(lines)}")
     infos = [(role + ("_tl" if two_level else ""), wt.kernel_info(mode, two_level))
@@ -2589,6 +2593,9 @@ def main() -> int:
               for name in sv.INFO_KERNELS]
     infos += [(KERNELS["fused_shade"][0], fs.kernel_info())]
     infos += [(f"shade_gather.{SHADE_MODES[mode]}", sg.kernel_info(mode)) for mode in sg.MODES]
+    infos += [(f"probe_gang.pg_ablate<{v}>", gang.kernel_info(v)) for v in gang.ABLATE_VARIANTS]
+    infos += [(f"probe_read.pr_read<{b}, {sp}>", read.kernel_info(b, sp))
+              for b in read.READ_BODIES[:-1] for sp in read.SPACES]
     for name, k in infos:
         say("2", f"{name}: {k['registers']} registers, {k['local_bytes']} bytes "
                  f"stack frame, {k['shared_bytes']} bytes shared a block of {k['threads']}; "

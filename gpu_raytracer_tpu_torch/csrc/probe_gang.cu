@@ -10,34 +10,76 @@
 // over the unified table [nodes; leaf rows] of bvh/wide.py (see
 // wide_common.cuh for the row layout).
 //
-// Layout: one 1024-thread block is one TPU tile; ray tile*1024 + g*128 + l
-// is gang g (warps 4g..4g+3), lane l. Each gang keeps its stack, leaf queue
-// and pointers in shared memory (zeroed: nopush and nopushst pop entries
-// nobody pushed; the TPU kernel pops uninitialised scratch there), 6.8 KB a
-// block. A node phase: every lane reads the gang's popped 512-byte row
-// through __ldg (one address per warp: a broadcast), slab-tests the 8
-// children, the gang minimum of each child's entry distance is taken with
-// __shfl_xor_sync and then across the gang's 4 warps through shared memory
-// behind a per-gang named barrier (bar.sync 1+g, 128); one thread per gang
-// (l == 0) builds the keys, runs the Batcher network and the conditional
-// pushes. The tile's node/triangle choice is a __syncthreads_count over the
-// gangs' pointers, which the pushers publish double-buffered by iteration
-// parity. A triangle phase: each lane tests the gang's popped leaf row.
+// pg_ablate layout (redesigned for Hopper, ROADMAP C44): a 1024-ray TPU tile
+// is one block of 8 warps, one warp a gang, each thread 4 of its gang's 128
+// rays (ray tile*1024 + g*128 + lane + 32 j, j < 4): 256 threads and 79-80
+// registers a thread, 3 tiles an SM. A gang's stack pointer, leaf-queue
+// length and top of stack live in registers of its warp (the same value in
+// every lane); its stack and leaf queue (zeroed: nopush and nopushst pop
+// entries nobody pushed; the TPU kernel pops uninitialised scratch there),
+// a row buffer, and each thread's rays' d and 1/d (kept out of registers)
+// in shared memory, 33.5 KB a tile. A node phase:
+//   - the popped node's row (48 bounds, 8 refs) was loaded into two
+//     registers a lane, coalesced, right after the pushes that made it the
+//     top of the stack (before the tile's vote), and is handed out through
+//     the warp's row buffer;
+//   - each thread slab-tests its 4 rays against each non-empty child (an
+//     empty child's key is +inf whatever its box) and keeps the minimum over
+//     its rays; then one __reduce_min_sync a child, all 8 in flight
+//     together, gives the gang minimum on the float bits read as unsigned:
+//     te >= 0 or +inf, with -0.0 (which orders above +inf as unsigned) made
+//     +0.0 by adding 0.0f first;
+//   - lane c < 8 keeps child c's key and ref; the 19 swaps run as six layers
+//     of disjoint pairs ({01,23,45,67} {02,13,46,57} {12,56} {04,15,26,37}
+//     {24,35} {12,34,56}; sorthalf: the first two and {12}), each one
+//     shuffle exchange, swapping on a strict > so ties stay as the serial
+//     network leaves them;
+//   - the pushes are lane-parallel: a ballot of the node children and one of
+//     the leaf children; lane c's slot is the pointer plus the popcount of
+//     the children > c (the serial loop runs c = 7 .. 0), and it stores
+//     where that slot is under the capacity: the serial loop's checks, since
+//     the pointers only grow (nopush, nopushst and pushbase keep their own
+//     semantics);
+// then every lane reads the new top and issues its row's load. A triangle
+// phase: the gang's warp copies its popped leaf row, coalesced, into its
+// row buffer, and each thread tests its 4 rays against the row's triangles
+// read by broadcast from there. The tile's node/triangle choice (and,
+// under `converge`, whether any gang is busy) is one __syncthreads_count an
+// iteration: lane 0 of each gang votes a trigger, lanes 1-9 vote busy, so
+// the count is triggers + 9 x busy gangs. A lane with t_max <= 0 (padding)
+// needs no flag: it enters no box (te >= 0 is not < t_max) and accepts no
+// triangle (t > 1e-4 is not < t_max), as the plain version's dead mask says.
+
+// pg_micro layout (the first design, kept for the stage-by-stage probe):
+// one 1024-thread block is one TPU tile; ray tile*1024 + g*128 + l is gang g
+// (warps 4g..4g+3), lane l; the gang minimum by __shfl_xor_sync and across
+// the gang's 4 warps through shared memory behind a per-gang named barrier
+// (bar.sync 1+g, 128); one thread per gang builds the keys, runs the Batcher
+// network and the pushes.
 //
 // What the variants price on this card (PERF.md): nosort/sorthalf the
-// pusher's compare-swaps; nopush/nopushst/pushbase the pusher's shared-memory
+// compare-swap layers; nopush/nopushst/pushbase the pushes' shared-memory
 // stores (the TPU's vector-to-scalar extracts have no Hopper twin: here a
-// value reaches the pusher in a register, so the extract cost is absent);
-// noload the dependent row fetch (all gangs read row 0, which stays in L1);
-// nored the shuffle and cross-warp reduction (the named barrier stays: it
-// also keeps the pops ahead of the pusher's stores to the same slot).
+// key reaches its lane in a register, so the extract cost is absent); noload
+// the dependent row fetch (all gangs read row 0, which stays in L1); nored
+// the gang minimum (the key of the gang's ray 0, one shuffle; a thread then
+// slab-tests its first ray only, since the other three go unused).
 //
-// What bounds it: dependent row fetches and the serial pusher (127 lanes of
-// a gang wait on one thread's ~20 compare-swaps and 16 conditional stores),
-// plus one block barrier an iteration. A simple correct first version:
-// cooperative row staging, warp-specialised pushers and a block-shared
-// stack are later work.
-//
+// What bounds it: the tile's lockstep. Each iteration ends in the tile's
+// vote, so it lasts as long as its busiest gang's warp, and a warp now runs
+// 4 rays' work: a node visit is 8 children x 4 rays x ~28 instructions (no
+// fma under -fmad=false), a leaf's triangle ~62 a ray. On the merged
+// bounce-1 wave only some gangs have a node or a leaf in a given phase; the
+// others wait at the vote (tools/torch_gang_phase_cycles.py counts the
+// cycles of each phase and of the wait, PERF.md). Exploratory builds that
+// took the work off the gangs' warps (rays in shared memory, any warp on
+// any gang's quarter, the gang minimum by shared atomics), held 4 tiles an
+// SM (64 registers, spilling), tested two triangles at once or divided
+// without the per-ray branch of the IEEE division were each slower on the
+// card than this design. The first design (one 1024-thread block a tile,
+// a serial pusher, two block barriers an iteration under converge, every
+// lane re-reading the row) took 2.1x as long (PERF.md).
+
 // Float semantics follow the plain versions (probes/gang.py), built with
 // -fmad=false: the slab terms (b - o) * inv, fminf/fmaxf, the triangle test of
 // wide_common.cuh; (int) casts truncate and saturate.
@@ -46,6 +88,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "kernel_report.cuh"
 #include "wide_common.cuh"
 
 #define PG_GANGS 8
@@ -59,6 +102,23 @@
 #define PG_IDLE (-2000000000)
 #define PG_MICRO_CAP 8
 #define PG_FULL_MASK 0xffffffffu
+#define PG_TILE_THREADS (PG_GANGS * 32)  // pg_ablate: one warp a gang
+#define PG_RAYS (PG_LANES / 32)          // rays a thread
+#define PG_NODE_FLOATS 56                // a node row's bounds and refs
+#define PG_BUSY_VOTES (PG_GANGS + 1)     // lanes 1..9 vote busy: count % 9 = triggers
+
+// pg_ablate blocks an SM that ptxas must leave room for (register cap).
+constexpr int PG_MIN_BLOCKS = 3;
+
+// The compare-swap layers of the Batcher network (probes/gang.LAYERS): lane
+// c < 8 exchanges with nibble c of a map (itself where it sits out).
+#define PG_LAYER_1 0x67452301u  // 01 23 45 67
+#define PG_LAYER_2 0x54761032u  // 02 13 46 57
+#define PG_LAYER_3 0x75643120u  // 12 56
+#define PG_LAYER_4 0x32107654u  // 04 15 26 37
+#define PG_LAYER_5 0x76325410u  // 24 35
+#define PG_LAYER_6 0x75634120u  // 12 34 56
+#define PG_LAYER_H 0x76543120u  // 12: sorthalf's third layer
 
 enum {
   V_FULL, V_NODE_ONLY, V_TRI_ONLY, V_NOSORT, V_NOPUSH, V_NOPUSHST, V_NOLOAD,
@@ -94,12 +154,11 @@ __device__ __forceinline__ void pg_batcher(float key[8], int ref[8]) {
   }
 }
 
-// Slab test of child c of the node row at `row` for one lane: tn, tf.
-__device__ __forceinline__ void pg_slab(const float* row, int c, float ox, float oy,
-                                        float oz, float ix, float iy, float iz,
-                                        float& tn, float& tf) {
-  const float2* q = reinterpret_cast<const float2*>(row + 6 * c);
-  const float2 a = __ldg(q), b = __ldg(q + 1), d = __ldg(q + 2);
+// Slab test of one box (a, b, d: the child's 6 floats as three float2) for
+// one ray: tn, tf.
+__device__ __forceinline__ void pg_box(float2 a, float2 b, float2 d, float ox, float oy,
+                                       float oz, float ix, float iy, float iz, float& tn,
+                                       float& tf) {
   const float tx0 = (a.x - ox) * ix;  // bx0
   const float tx1 = (b.y - ox) * ix;  // bx1
   const float ty0 = (a.y - oy) * iy;  // by0
@@ -110,46 +169,105 @@ __device__ __forceinline__ void pg_slab(const float* row, int c, float ox, float
   tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
 }
 
+// Slab test of child c of the node row at `row` for one lane: tn, tf.
+__device__ __forceinline__ void pg_slab(const float* row, int c, float ox, float oy,
+                                        float oz, float ix, float iy, float iz,
+                                        float& tn, float& tf) {
+  const float2* q = reinterpret_cast<const float2*>(row + 6 * c);
+  pg_box(__ldg(q), __ldg(q + 1), __ldg(q + 2), ox, oy, oz, ix, iy, iz, tn, tf);
+}
+
 __device__ __forceinline__ float pg_warp_min(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(PG_FULL_MASK, v, off));
   return v;
 }
 
-struct PgAblateShared {
+// One compare-swap layer among lanes 0..7 (the others sit out): the lower
+// lane of a pair keeps the smaller key, a tie stays.
+__device__ __forceinline__ void pg_layer(unsigned map, int lane, float& key, int& ref) {
+  const int partner = lane < 8 ? (int)((map >> (4 * lane)) & 0xFu) : lane;
+  const float pk = __shfl_sync(PG_FULL_MASK, key, partner);
+  const int pr = __shfl_sync(PG_FULL_MASK, ref, partner);
+  if (lane < partner ? key > pk : pk > key) {
+    key = pk;
+    ref = pr;
+  }
+}
+
+// wt_tri_hit (wide_common.cuh) on a triangle staged in shared memory: the
+// same terms in the same order, the 9 floats read with plain loads.
+__device__ __forceinline__ bool pg_tri_hit(const float* g, float ox, float oy, float oz,
+                                           float dx, float dy, float dz, float limit,
+                                           float& t) {
+  const float p0x = g[0], p0y = g[1], p0z = g[2];
+  const float e1x = g[3], e1y = g[4], e1z = g[5];
+  const float e2x = g[6], e2y = g[7], e2z = g[8];
+  const float hx = dy * e2z - dz * e2y;
+  const float hy = dz * e2x - dx * e2z;
+  const float hz = dx * e2y - dy * e2x;
+  const float a = e1x * hx + e1y * hy + e1z * hz;
+  const float f = 1.0f / (fabsf(a) < WT_DIV_EPS ? WT_DIV_EPS : a);
+  const float sx = ox - p0x, sy = oy - p0y, sz = oz - p0z;
+  const float u = f * (sx * hx + sy * hy + sz * hz);
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  const float w = f * (dx * qx + dy * qy + dz * qz);
+  t = f * (e2x * qx + e2y * qy + e2z * qz);
+  return (fabsf(a) >= WT_DIV_EPS) && (u >= 0.0f) && (u <= 1.0f) && (w >= 0.0f) &&
+         (u + w <= 1.0f) && (t > WT_RAY_EPS) && (t < limit);
+}
+
+struct __align__(16) PgTileShared {
+  float row[PG_GANGS][WT_ROW];  // each gang's popped row: a node's 56 floats or a leaf
+  // Each thread's rays' 1/d (the slab tests) and d (the triangle tests),
+  // [axis][ray][thread]: kept here, not in registers, for the tiles an SM holds.
+  float inv[3][PG_RAYS][PG_TILE_THREADS];
+  float dir[3][PG_RAYS][PG_TILE_THREADS];
   int stack[PG_GANGS][PG_STACK + 1];
   int leafq[PG_GANGS][PG_LEAFQ + 1];
-  int sp[2][PG_GANGS];  // by iteration parity: read one, the pushers write the other
-  int lq[2][PG_GANGS];
-  float part[PG_GANGS][4][8];  // per gang, per warp of the gang: 8 child minima
 };
 
 template <int VARIANT>
-__global__ void __launch_bounds__(PG_BLOCK)
+__global__ void __launch_bounds__(PG_TILE_THREADS, PG_MIN_BLOCKS)
 pg_ablate_kernel(const float* __restrict__ table, int N, int L,
                  const float* __restrict__ ray_o, const float* __restrict__ ray_d,
                  const float* __restrict__ t_max, int k_iters, int converge,
                  float* __restrict__ t_out, int* __restrict__ tri_out,
                  int* __restrict__ iters_out) {
-  __shared__ PgAblateShared sh;
-  const int tid = threadIdx.x;
-  const int g = tid >> 7, l = tid & 127, wg = l >> 5, lane = tid & 31;
-  const size_t r = (size_t)blockIdx.x * PG_BLOCK + tid;
+  __shared__ PgTileShared sh;
+  const int g = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* rowbuf = sh.row[g];
+  int* stack = sh.stack[g];
+  int* leafq = sh.leafq[g];
+  for (int k = lane; k < PG_STACK + 1; k += 32) stack[k] = 0;
+  if (lane < PG_LEAFQ + 1) leafq[lane] = 0;
 
-  for (int k = tid; k < PG_GANGS * (PG_STACK + 1); k += PG_BLOCK) (&sh.stack[0][0])[k] = 0;
-  for (int k = tid; k < PG_GANGS * (PG_LEAFQ + 1); k += PG_BLOCK) (&sh.leafq[0][0])[k] = 0;
-  if (tid < PG_GANGS) {
-    sh.sp[0][tid] = 1;  // the root node, already in slot 0
-    sh.lq[0][tid] = 0;
+  const size_t r0 = (size_t)blockIdx.x * PG_BLOCK + g * PG_LANES + lane;
+  float ox[PG_RAYS], oy[PG_RAYS], oz[PG_RAYS], best_t[PG_RAYS];
+  int best_tri[PG_RAYS];
+#pragma unroll
+  for (int k = 0; k < PG_RAYS; ++k) {
+    const size_t r = r0 + 32 * k;
+    ox[k] = ray_o[3 * r + 0], oy[k] = ray_o[3 * r + 1], oz[k] = ray_o[3 * r + 2];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float d = ray_d[3 * r + a];
+      sh.dir[a][k][threadIdx.x] = d;
+      sh.inv[a][k][threadIdx.x] = wt_inv1(d);
+    }
+    best_t[k] = t_max[r];
+    best_tri[k] = -1;
   }
 
-  const float ox = ray_o[3 * r + 0], oy = ray_o[3 * r + 1], oz = ray_o[3 * r + 2];
-  const float dx = ray_d[3 * r + 0], dy = ray_d[3 * r + 1], dz = ray_d[3 * r + 2];
-  const float ix = wt_inv1(dx), iy = wt_inv1(dy), iz = wt_inv1(dz);
-  const float tm = t_max[r];
-  const bool dead = tm <= 0.0f;  // padding lanes
-  float best_t = tm;
-  int best_tri = -1;
+  int sp = 1, lq = 0;  // the root node, already in slot 0
+  int top = 0;         // stack[sp - 1], or PG_IDLE where the stack is empty
+  // The row of `top` (noload: row 0), loaded ahead: lane l holds floats l
+  // and 32 + l (l < 24).
+  const float* prow = table;
+  float pre0 = __ldg(prow + lane);
+  float pre1 = lane < PG_NODE_FLOATS - 32 ? __ldg(prow + 32 + lane) : 0.0f;
 
   int trig = 0;  // no gang holds a leaf yet
   bool busy = true;
@@ -157,118 +275,151 @@ pg_ablate_kernel(const float* __restrict__ table, int N, int L,
   __syncthreads();
   while (it < k_iters) {
     if (converge && !busy) break;
-    const int cur = it & 1, nxt = cur ^ 1;
     ++it;
-    const int sp = sh.sp[cur][g], lq = sh.lq[cur][g];
-    int new_sp = sp, new_lq = lq;
     const bool tri_phase = VARIANT == V_TRI_ONLY ? true : VARIANT == V_NODE_ONLY ? false : trig > 0;
 
     if (tri_phase) {
-      // ---- every gang pops one queued leaf row; each lane tests it ----
+      // ---- the gang pops one queued leaf row; each thread tests its rays ----
       const int qm = lq > 0 ? lq - 1 : 0;
-      const int rid = lq > 0 ? sh.leafq[g][qm] : -1;
-      if (rid >= 0 && !dead) {
-        const float* row = table + (size_t)(N + min(max(rid, 0), L - 1)) * WT_ROW;
-        const float kind = __ldg(row);
-        for (int j = 0; j < WT_LEAF_CAP; ++j) {
-          if (!((float)j < kind)) break;
-          float t, u, w;
-          if (wt_tri_hit(row + 16 + 9 * j, ox, oy, oz, dx, dy, dz, best_t, t, u, w)) {
-            best_t = t;
-            best_tri = (int)__ldg(row + 1 + j);
+      const int rid = lq > 0 ? leafq[qm] : -1;
+      if (rid >= 0) {
+        // The leaf row, coalesced, into the gang's row buffer: its triangles
+        // are then read by broadcast from shared memory.
+        const float* row = table + (size_t)(N + min(rid, L - 1)) * WT_ROW;
+#pragma unroll
+        for (int q = 0; q < WT_ROW / 32; ++q) rowbuf[32 * q + lane] = __ldg(row + 32 * q + lane);
+        __syncwarp();
+        float dx[PG_RAYS], dy[PG_RAYS], dz[PG_RAYS];
+#pragma unroll
+        for (int k = 0; k < PG_RAYS; ++k) {
+          dx[k] = sh.dir[0][k][threadIdx.x];
+          dy[k] = sh.dir[1][k][threadIdx.x];
+          dz[k] = sh.dir[2][k][threadIdx.x];
+        }
+        // Slots j with j < kind (float compare, as the plain version's
+        // mask; NaN or <= 0: none), as a trip count.
+        const float kind = rowbuf[0];
+        const int count = kind > 0.0f ? (int)ceilf(fminf(kind, (float)WT_LEAF_CAP)) : 0;
+        for (int j = 0; j < count; ++j) {
+          const int id = (int)rowbuf[1 + j];
+#pragma unroll
+          for (int k = 0; k < PG_RAYS; ++k) {
+            float t;
+            if (pg_tri_hit(rowbuf + 16 + 9 * j, ox[k], oy[k], oz[k], dx[k], dy[k], dz[k],
+                           best_t[k], t)) {
+              best_t[k] = t;
+              best_tri[k] = id;
+            }
           }
         }
       }
-      new_lq = qm;
+      lq = qm;
     } else {
       // ---- node phase: pop, slab-test 8 children, gang minimum, pushes ----
-      const int v = sp > 0 ? sh.stack[g][sp - 1] : PG_IDLE;
+      const int v = top;
       const int s0 = sp > 0 ? sp - 1 : 0;
-      const float* row =
-          table + (size_t)(VARIANT == V_NOLOAD ? 0 : min(max(v, 0), N - 1)) * WT_ROW;
-      const bool node_v = v >= 0;
-      float mine[8];
+      rowbuf[lane] = pre0;
+      if (lane < PG_NODE_FLOATS - 32) rowbuf[32 + lane] = pre1;
+      __syncwarp();
+      float key = INFINITY;  // lane c < 8: child c's key and ref
+      int ref = -1;
+      if (v >= 0) {
+        float ix[PG_RAYS], iy[PG_RAYS], iz[PG_RAYS];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        float tn, tf;
-        pg_slab(row, c, ox, oy, oz, ix, iy, iz, tn, tf);
-        const float te = fmaxf(tn, 0.0f);
-        const bool hit = (tn <= tf) && (tf > 0.0f) && (te < best_t);
-        if (VARIANT == V_NORED) {
-          mine[c] = (hit && node_v) ? te : INFINITY;  // lane 0's is the key
-        } else {
-          mine[c] = pg_warp_min((hit && node_v && !dead) ? te : INFINITY);
+        for (int k = 0; k < PG_RAYS; ++k) {
+          ix[k] = sh.inv[0][k][threadIdx.x];
+          iy[k] = sh.inv[1][k][threadIdx.x];
+          iz[k] = sh.inv[2][k][threadIdx.x];
         }
-      }
-      if (VARIANT != V_NORED && lane == 0) {
+        // This thread's minimum over its rays of each child's entry distance
+        // (nored: its ray 0's), +inf where none enters or the child is empty.
+        float m[8];
 #pragma unroll
-        for (int c = 0; c < 8; ++c) sh.part[g][wg][c] = mine[c];
-      }
-      pg_gang_sync(g);  // partial minima in; every lane of the gang has popped
-      if (l == 0) {
-        float key[8];
-        int ref[8];
+        for (int c = 0; c < 8; ++c) {
+          m[c] = INFINITY;
+          if ((int)rowbuf[48 + c] == -1) continue;  // empty: +inf whatever its box
+          const float2* q = reinterpret_cast<const float2*>(rowbuf + 6 * c);
+          const float2 a = q[0], b = q[1], d = q[2];
+#pragma unroll
+          for (int k = 0; k < (VARIANT == V_NORED ? 1 : PG_RAYS); ++k) {
+            float tn, tf;
+            pg_box(a, b, d, ox[k], oy[k], oz[k], ix[k], iy[k], iz[k], tn, tf);
+            const float te = fmaxf(tn, 0.0f);
+            if ((tn <= tf) && (tf > 0.0f) && (te < best_t[k])) m[c] = fminf(m[c], te);
+          }
+        }
+        // The gang minima, all 8 reductions in flight together; lane c keeps
+        // child c's key and ref.
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
           const float tmin =
-              VARIANT == V_NORED
-                  ? mine[c]
-                  : fminf(fminf(sh.part[g][0][c], sh.part[g][1][c]),
-                          fminf(sh.part[g][2][c], sh.part[g][3][c]));
-          const int rr = (int)__ldg(row + 48 + c);
-          const bool take = rr != -1 && tmin < INFINITY;
-          key[c] = take ? tmin : INFINITY;
-          ref[c] = take ? rr : -1;
-        }
-        if (VARIANT == V_SORTHALF) {
-          pg_batcher<9>(key, ref);
-        } else if (VARIANT != V_NOSORT) {
-          pg_batcher<19>(key, ref);
-        }
-        int s = s0, q = lq;
-        if (VARIANT == V_NOPUSH) {
-          s = min(s0 + 2, PG_STACK - 1);
-        } else if (VARIANT == V_PUSHBASE) {
-          int nn = 0, nl = 0;
-#pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            sh.stack[g][min(s0 + c, PG_SCRAP)] = ref[c];
-            sh.leafq[g][min(lq + c, PG_QSCRAP)] = -ref[c] - 2;
-            nn += ref[c] >= 0;
-            nl += ref[c] <= -2;
-          }
-          s = min(s0 + nn, PG_STACK - 1);
-          q = min(lq + nl, PG_LEAFQ - 1);
-        } else {
-#pragma unroll
-          for (int c = 7; c >= 0; --c) {
-            const int rr = ref[c];
-            const bool take_n = rr >= 0 && s < PG_STACK;
-            sh.stack[g][(VARIANT == V_NOPUSHST || !take_n) ? PG_SCRAP : s] = rr;
-            s += take_n ? 1 : 0;
-            const bool take_l = rr <= -2 && q < PG_LEAFQ;
-            sh.leafq[g][(VARIANT == V_NOPUSHST || !take_l) ? PG_QSCRAP : q] = -rr - 2;
-            q += take_l ? 1 : 0;
+              VARIANT == V_NORED  // the key of the gang's ray 0
+                  ? __shfl_sync(PG_FULL_MASK, m[c], 0)
+                  : __uint_as_float(__reduce_min_sync(PG_FULL_MASK,
+                                                      __float_as_uint(m[c] + 0.0f)));  // -0 -> +0
+          if (lane == c && tmin < INFINITY) {
+            key = tmin;
+            ref = (int)rowbuf[48 + c];
           }
         }
-        new_sp = s;
-        new_lq = q;
-      } else {
-        new_sp = s0;
       }
+      if (VARIANT != V_NOSORT) {
+        pg_layer(PG_LAYER_1, lane, key, ref);
+        pg_layer(PG_LAYER_2, lane, key, ref);
+        if (VARIANT == V_SORTHALF) {
+          pg_layer(PG_LAYER_H, lane, key, ref);
+        } else {
+          pg_layer(PG_LAYER_3, lane, key, ref);
+          pg_layer(PG_LAYER_4, lane, key, ref);
+          pg_layer(PG_LAYER_5, lane, key, ref);
+          pg_layer(PG_LAYER_6, lane, key, ref);
+        }
+      }
+      // Lanes >= 8 hold ref -1: they push nothing.
+      const unsigned nodes = __ballot_sync(PG_FULL_MASK, ref >= 0);
+      const unsigned leaves = __ballot_sync(PG_FULL_MASK, ref <= -2);
+      if (VARIANT == V_NOPUSH) {
+        sp = min(s0 + 2, PG_STACK - 1);
+      } else if (VARIANT == V_PUSHBASE) {
+        if (lane < 8) {
+          if (s0 + lane < PG_SCRAP) stack[s0 + lane] = ref;
+          if (lq + lane < PG_QSCRAP) leafq[lq + lane] = -ref - 2;
+        }
+        sp = min(s0 + __popc(nodes), PG_STACK - 1);
+        lq = min(lq + __popc(leaves), PG_LEAFQ - 1);
+      } else {
+        const unsigned before = lane < 8 ? ~0u << (lane + 1) : 0u;  // c' > c push first
+        const int sn = s0 + __popc(nodes & before), sl = lq + __popc(leaves & before);
+        if (VARIANT != V_NOPUSHST) {
+          if (ref >= 0 && sn < PG_STACK) stack[sn] = ref;
+          if (ref <= -2 && sl < PG_LEAFQ) leafq[sl] = -ref - 2;
+        }
+        sp = min(s0 + __popc(nodes), PG_STACK);
+        lq = min(lq + __popc(leaves), PG_LEAFQ);
+      }
+      __syncwarp();  // the pushes in before the new top is read
+      top = sp > 0 ? stack[sp - 1] : PG_IDLE;
+      prow = table + (size_t)(VARIANT == V_NOLOAD ? 0 : min(max(top, 0), N - 1)) * WT_ROW;
+      pre0 = __ldg(prow + lane);
+      pre1 = lane < PG_NODE_FLOATS - 32 ? __ldg(prow + 32 + lane) : 0.0f;
     }
-    if (l == 0) {
-      sh.sp[nxt][g] = new_sp;
-      sh.lq[nxt][g] = new_lq;
-    }
-    // Publishes the pushes and pointers, and counts the gangs that trigger
-    // a triangle phase next.
-    trig = __syncthreads_count(l == 0 && (new_lq >= PG_QTRIG || (new_sp == 0 && new_lq > 0)));
-    if (converge) busy = __syncthreads_count(l == 0 && (new_sp > 0 || new_lq > 0)) > 0;
+    // Counts the gangs that trigger a triangle phase next (and, lanes 1-9,
+    // the busy ones); orders this iteration's row-buffer reads before the
+    // next one's stores.
+    const bool trig_g = lq >= PG_QTRIG || (sp == 0 && lq > 0);
+    const bool busy_g = sp > 0 || lq > 0;
+    const int votes = __syncthreads_count(
+        (lane == 0 && trig_g) || (converge && lane >= 1 && lane <= PG_BUSY_VOTES && busy_g));
+    trig = votes % PG_BUSY_VOTES;
+    busy = votes >= PG_BUSY_VOTES;
   }
-  t_out[r] = best_tri >= 0 ? best_t : INFINITY;
-  tri_out[r] = best_tri;
-  if (tid == 0) iters_out[blockIdx.x] = it;
+#pragma unroll
+  for (int k = 0; k < PG_RAYS; ++k) {
+    const size_t r = r0 + 32 * k;
+    t_out[r] = best_tri[k] >= 0 ? best_t[k] : INFINITY;
+    tri_out[r] = best_tri[k];
+  }
+  if (threadIdx.x == 0) iters_out[blockIdx.x] = it;
 }
 
 template <int STAGE>
@@ -357,11 +508,46 @@ extern "C" int pg_layout(int which) {
     case 7: return V_COUNT;
     case 8: return S_COUNT;
     case 9: return PG_MICRO_CAP;
+    case 10: return (int)PG_LAYER_1;
+    case 11: return (int)PG_LAYER_2;
+    case 12: return (int)PG_LAYER_3;
+    case 13: return (int)PG_LAYER_4;
+    case 14: return (int)PG_LAYER_5;
+    case 15: return (int)PG_LAYER_6;
+    case 16: return (int)PG_LAYER_H;
+    case 17: return PG_TILE_THREADS;
     default: return -1;
   }
 }
 
-// One block per 1024-ray tile (G tiles; rays padded by the caller). Returns
+// The compiler's and the occupancy API's report of pg_ablate<variant>
+// (kernel_report.cuh). Returns a cudaError_t.
+extern "C" int pg_kernel_info(int variant, int* out) {
+  const void* k = nullptr;
+#define PG_INFO(V)                           \
+  case V:                                    \
+    k = (const void*)pg_ablate_kernel<V>;    \
+    break;
+  switch (variant) {
+    PG_INFO(V_FULL)
+    PG_INFO(V_NODE_ONLY)
+    PG_INFO(V_TRI_ONLY)
+    PG_INFO(V_NOSORT)
+    PG_INFO(V_NOPUSH)
+    PG_INFO(V_NOPUSHST)
+    PG_INFO(V_NOLOAD)
+    PG_INFO(V_NORED)
+    PG_INFO(V_PUSHBASE)
+    PG_INFO(V_SORTHALF)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef PG_INFO
+  return kernel_report(k, PG_TILE_THREADS, out);
+}
+
+// One block of 8 warps per 1024-ray tile (G tiles; rays padded by the
+// caller). Returns
 // the cudaError_t of the launch (0 on success).
 extern "C" int pg_ablate(int variant, const float* table, int N, int L, const float* ray_o,
                          const float* ray_d, const float* t_max, int G, int k_iters,
@@ -372,9 +558,9 @@ extern "C" int pg_ablate(int variant, const float* table, int N, int L, const fl
   cudaStream_t s = (cudaStream_t)stream;
 #define PG_CASE(V)                                                                     \
   case V:                                                                              \
-    pg_ablate_kernel<V><<<G, PG_BLOCK, 0, s>>>(table, N, L, ray_o, ray_d, t_max,       \
-                                               k_iters, converge, t_out, tri_out,     \
-                                               iters_out);                            \
+    pg_ablate_kernel<V><<<G, PG_TILE_THREADS, 0, s>>>(table, N, L, ray_o, ray_d, t_max, \
+                                                      k_iters, converge, t_out, tri_out, \
+                                                      iters_out);                        \
     break;
   switch (variant) {
     PG_CASE(V_FULL)

@@ -190,6 +190,8 @@ def load() -> ctypes.CDLL:
     lib.pg_layout.argtypes = lib.pf_layout.argtypes = [ci]
     lib.pg_ablate.restype = ci
     lib.pg_ablate.argtypes = [ci, vp, ci, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp]
+    lib.pg_kernel_info.restype = ci
+    lib.pg_kernel_info.argtypes = [ci, vp]
     lib.pg_micro.restype = ci
     lib.pg_micro.argtypes = [ci, vp, ci, vp, ci, ci, vp, vp]
     pi = ctypes.POINTER(ci)
@@ -206,6 +208,8 @@ def load() -> ctypes.CDLL:
     lib.pb_pop.argtypes = [vp, ci, vp, vp, ci, vp, vp]
     lib.pr_smem_optin.restype = ci
     lib.pr_smem_optin.argtypes = []
+    lib.pr_kernel_info.restype = ci
+    lib.pr_kernel_info.argtypes = [ci, ci, vp]
     lib.pr_read.restype = ci
     lib.pr_read.argtypes = [ci, ci, vp, ci, ci, ci, ci, vp, vp]
     lib.pp_gang.restype = ci
@@ -248,7 +252,9 @@ def load() -> ctypes.CDLL:
         raise RuntimeError("shade_gather.cu field layout != IN_FIELDS/OUT_FIELDS")
     pg = (gang.GANGS, gang.LANES, gang.STACK_DEPTH, gang.LEAFQ_DEPTH, gang.QTRIG,
           gang.LEAF_CAP, gang.IDLE, len(gang.ABLATE_VARIANTS), len(gang.MICRO_STAGES),
-          gang.MICRO_CAP)
+          gang.MICRO_CAP, *(ctypes.c_int(gang.layer_map(x)).value
+                            for x in gang.LAYERS + gang.LAYERS_HALF[-1:]),
+          gang.TILE_THREADS)
     if tuple(lib.pg_layout(k) for k in range(len(pg))) != pg:
         raise RuntimeError("probe_gang.cu layout constants != probes/gang.py")
     pf = (fetch.TILE, len(fetch.LANE_MODES), len(fetch.WINDOW_MODES), fetch.ROW_LANES,
@@ -259,7 +265,7 @@ def load() -> ctypes.CDLL:
             ("probe_block.cu", lib.pb_layout, (block.LANES, block.ROW, block.STACK, block.SP_CAP)),
             ("probe_read.cu", lib.pr_layout,
              (read.SHAPE[0] * read.SHAPE[1], len(read.READ_BODIES), len(read.SPACES),
-              read.STRIDE)),
+              read.STRIDE, read.CHUNK)),
             ("probe_prims.cu", lib.pp_layout,
              (prims.GANGS, prims.LANES, prims.STACK, len(prims.PRIMS_BODIES), prims.STRIDE)),
             ("probe_dma.cu", lib.pd_layout,

@@ -33,7 +33,10 @@ row, accumulated), slab (child keys: slab test and gang minimum), sort (the
 19-swap network), push (conditional pushes, the stack pointer capped at 8).
 
 On a CUDA tensor `ablate` / `micro` launch `csrc/probe_gang.cu`
-(`pg_ablate<VARIANT>`, `pg_micro<STAGE>`) and raise if they cannot; on a
+(`pg_ablate<VARIANT>`: one block of 8 warps a tile, a warp a gang, 4 rays a
+thread, the 19 swaps as the six compare-swap layers of `LAYERS`, the
+pushes lane-parallel; `pg_micro<STAGE>`: one 1024-thread block a tile) and
+raise if they cannot; on a
 CPU tensor they run `ablate_plain` / `micro_plain`, the plain PyTorch
 versions: the same arithmetic in the same order, vectorised over tiles,
 gangs and lanes, the fixed-iteration loop in Python, the per-gang pushes as
@@ -51,7 +54,7 @@ import torch.nn.functional as F
 
 from gpu_raytracer_tpu_torch.ops import _native
 from gpu_raytracer_tpu_torch.probes import c_ptr, c_stream
-from gpu_raytracer_tpu_torch.ops.wide_traverse import OPS_PER_TRIANGLE, _inv1
+from gpu_raytracer_tpu_torch.ops.wide_traverse import INFO, OPS_PER_TRIANGLE, _inv1
 
 # The JAX probes' constants (ops/pallas_gang.py, ops/pallas_wide.py and the
 # two tools), copied: the port imports nothing of the JAX package.
@@ -81,6 +84,23 @@ SWAPS = ((0, 1), (2, 3), (4, 5), (6, 7), (0, 2), (1, 3), (4, 6), (5, 7),
          (1, 2), (5, 6), (0, 4), (1, 5), (2, 6), (3, 7), (2, 4), (3, 5),
          (1, 2), (3, 4), (5, 6))
 SWAPS_HALF = SWAPS[:9]
+# The same swaps as layers of disjoint pairs, each run at once by pg_ablate
+# (one shuffle exchange among 8 lanes a layer): SWAPS in order, (1, 2) and
+# (5, 6) merged; sorthalf stops after (1, 2).
+LAYERS = (((0, 1), (2, 3), (4, 5), (6, 7)), ((0, 2), (1, 3), (4, 6), (5, 7)),
+          ((1, 2), (5, 6)), ((0, 4), (1, 5), (2, 6), (3, 7)), ((2, 4), (3, 5)),
+          ((1, 2), (3, 4), (5, 6)))
+LAYERS_HALF = LAYERS[:2] + (((1, 2),),)
+TILE_THREADS = GANGS * 32    # pg_ablate: one warp a gang
+
+
+def layer_map(layer) -> int:
+    """A layer as csrc/probe_gang.cu encodes it: nibble c holds child c's
+    partner (c itself where it sits out)."""
+    partner = list(range(8))
+    for a, b in layer:
+        partner[a], partner[b] = b, a
+    return sum(p << (4 * c) for c, p in enumerate(partner))
 
 # Launch counts: a kernel's count rises only where the kernel is launched; a
 # plain version's only where the plain version runs.
@@ -424,6 +444,20 @@ def ablate_kernel(gt: GangTable, wave, variant: str = "full", k_iters: int = K_I
     return GangHit(t[:R], tri[:R], iters)
 
 
+def kernel_info(variant: str = "full") -> dict:
+    """What the compiler and the occupancy API report for
+    `pg_ablate<variant>` on the card (INFO: registers, stack frame and
+    static shared bytes, the threads of a block, the blocks an SM holds, the
+    SMs)."""
+    import ctypes
+
+    lib = _native.load()
+    out = (ctypes.c_int * len(INFO))()
+    _native.check(lib.pg_kernel_info(ABLATE_VARIANTS.index(variant), out),
+                  f"probe_gang.kernel_info({variant})")
+    return dict(zip(INFO, list(out)))
+
+
 def micro_kernel(table: torch.Tensor, rays: torch.Tensor, stage: str = "push",
                  n_iters: int = N_ITERS) -> torch.Tensor:
     """Launch `pg_micro<stage>` on CUDA tensors (raises otherwise)."""
@@ -475,11 +509,15 @@ def _head(wave, tiles: int):
 
 
 def _check_equal(a: GangHit, b: GangHit, what: str) -> None:
-    """Kernel `a` vs plain `b`: tri equal, t bit-equal (inf on misses)."""
+    """Kernel `a` vs plain `b`: tri equal, t bit-equal (inf on misses), each
+    tile's iterations equal."""
     if not torch.equal(a.tri, b.tri):
         raise AssertionError(f"{what}: tri differs on {int((a.tri != b.tri).sum())} rays")
     if not torch.equal(a.t, b.t):
         raise AssertionError(f"{what}: t differs on {int((a.t != b.t).sum())} rays")
+    if not torch.equal(a.iters, b.iters):
+        raise AssertionError(f"{what}: iterations differ on {int((a.iters != b.iters).sum())} "
+                             f"tiles")
 
 
 def ablation_bytes_ops(work: dict, rays: int) -> tuple:
@@ -498,9 +536,10 @@ def ablation(gt: GangTable, wave, k_iters: int = K_ITERS, head_tiles: int = 64,
     """One result a variant, run for `k_iters` iterations on every tile of
     `wave`. On a CUDA table: the kernel on the whole wave against its plain
     version (on all tiles for `full`, on the first `head_tiles` for the
-    others): tri equal, t bit-equal; ms per launch from `timer(fn)` (a list
-    of device ms, its median taken), us per tile-iteration and the delta
-    against `full`. On a CPU table: the plain version, no times."""
+    others): tri equal, t bit-equal, iterations equal; ms per launch from
+    `timer(fn)` (a list of device ms, its median taken), us per
+    tile-iteration and the delta against `full`. On a CPU table: the plain
+    version, no times."""
     o, d, tm = pad_wave(wave)
     G = tm.shape[0] // BLOCK
     cuda = gt.table.device.type == "cuda"

@@ -27,9 +27,10 @@ A sum starts at 0.0 and adds in the probe's order (Python `sum` from 0).
 On a CUDA tensor `read` launches `csrc/probe_read.cu` (`pr_read<BODY,
 SPACE>`: SPACE "ldg", the table read in place through the read-only path,
 or "shared", staged into shared memory first, where it fits one block) and
-raises if it cannot; on a CPU tensor it runs `read_plain`. Every thread of
-the one 1024-thread block runs the scalar loop (the reads are warp-uniform,
-as the TPU's scalar core reads one address) and writes its element.
+raises if it cannot; on a CPU tensor it runs `read_plain`. One 1024-thread
+block takes the pops CHUNK at a time: it gathers the chunk's values in
+parallel, sums each pop's values on its own thread, then one thread adds the
+pops' sums in order, the probe's f32 order; every thread writes the result.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from gpu_raytracer_tpu_torch.ops import _native
+from gpu_raytracer_tpu_torch.ops.wide_traverse import INFO
 from gpu_raytracer_tpu_torch.probes import c_ptr, c_stream, median_ms, plain_on_card
 
 SHAPE = (8, 128)
@@ -51,6 +53,7 @@ N = 40_000
 POPS = 256
 E_COLS = 8192
 ROLL_POPS = 256
+CHUNK = 256         # pops a round of the kernel: gather, per-pop sums, chain
 
 SITES = {
     "A": "exp_scalar_read.py:38 makeA.kernel",
@@ -166,6 +169,18 @@ def read(body: str, table: torch.Tensor, pops: int = POPS, space: str = "ldg",
     raise RuntimeError(f"no read probe for device {table.device}")
 
 
+def kernel_info(body: str = "A", space: str = "ldg") -> dict:
+    """What the compiler and the occupancy API report for `pr_read<body,
+    space>` on the card (INFO)."""
+    import ctypes
+
+    lib = _native.load()
+    out = (ctypes.c_int * len(INFO))()
+    _native.check(lib.pr_kernel_info(READ_BODIES.index(body), SPACES.index(space), out),
+                  f"probe_read.kernel_info({body}, {space})")
+    return dict(zip(INFO, list(out)))
+
+
 # cudaErrorInvalidValue: the launch asked for more dynamic shared memory
 # than a block may opt in to.
 REFUSED = 1
@@ -240,9 +255,13 @@ def probe_reads(device, pops: int = POPS, n: int = N, seed: int = 0, timer=None)
     """Every body but the ceiling at the probes' sizes (roll: 256 pops),
     in both spaces where the table fits one block's shared memory (roll)
     and in place otherwise. On the card each launch against the plain
-    version (bit-equal), timed with `timer`, ns a pop, beside one
-    `index_select` of the values read (A, B, C, E, roll); on the CPU the
-    plain version, no times."""
+    version (bit-equal), timed with `timer`, ns a pop, beside two PyTorch
+    calls on the values read (A, B, C, E, roll): one `index_select` (the
+    gather alone, `library_ms`) and one `embedding_bag` of them as one bag
+    with mode="sum" (the probe's value up to the order of the sum,
+    `embedding_bag_ms`); on the CPU the plain version, no times."""
+    import torch.nn.functional as F
+
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -257,7 +276,8 @@ def probe_reads(device, pops: int = POPS, n: int = N, seed: int = 0, timer=None)
             row = {"kernel": "pr_read", "body": body, "probe": SITES[body], "space": space,
                    "table": list(table.shape), "table_bytes": table.numel() * 4, "pops": p,
                    "device": table.device.type, "ms": None, "ns_per_pop": None,
-                   "plain_ms": None, "library_ms": None, "bytes": nbytes, "ops": ops,
+                   "plain_ms": None, "library_ms": None, "embedding_bag_ms": None,
+                   "bytes": nbytes, "ops": ops,
                    "sum": float(out[0, 0])}
             if table.device.type == "cuda":
                 if ref is None:
@@ -270,7 +290,11 @@ def probe_reads(device, pops: int = POPS, n: int = N, seed: int = 0, timer=None)
                 row["ns_per_pop"] = 1e6 * row["ms"] / p
                 if body != "D":
                     flat_t = table.view(-1)
+                    one_bag = torch.zeros(1, dtype=torch.int64, device=table.device)
                     row["library_ms"] = median_ms(
                         timer, lambda: flat_t.index_select(0, flat))["ms"]
+                    row["embedding_bag_ms"] = median_ms(
+                        timer, lambda: F.embedding_bag(flat, flat_t.view(-1, 1), one_bag,
+                                                       mode="sum"))["ms"]
             rows.append(row)
     return rows

@@ -793,6 +793,48 @@ def test_probe_gang_ablate_kernel_matches_plain(probe_wave, variant):
     assert torch.equal(a.tri, b.tri) and torch.equal(a.t, b.t)
 
 
+@pytest.mark.parametrize("case", ["ragged", "dead", "k1", "converge"])
+def test_probe_gang_ablate_edge_cases(probe_wave, case):
+    """pg_ablate against its plain version (tri, iters equal, t bit-equal),
+    every variant: on 2,972 rays (3 tiles, the last padded with dead
+    lanes), on 2 tiles with every 7th t_max 0 and every 11th negative, at 1
+    iteration; and `full` run to its end (converge), each tile's iterations
+    equal."""
+    from gpu_raytracer_tpu_torch.probes import gang
+
+    o, d, tm = probe_wave["wave"]
+    k, variants, converge = 64, gang.ABLATE_VARIANTS, False
+    if case == "ragged":
+        o, d, tm = o[:2972], d[:2972], tm[:2972]
+    elif case == "dead":
+        o, d, tm = o[:2048], d[:2048], tm[:2048].clone()
+        tm[::7] = 0.0
+        tm[3::11] = -1.0
+    elif case == "k1":
+        k = 1
+    else:
+        k, variants, converge = 1 << 16, ("full",), True
+    for v in variants:
+        a = gang.ablate(probe_wave["gt"], (o, d, tm), v, k, converge)
+        b = gang.ablate_plain(probe_wave["gt"], (o, d, tm), v, k, converge)
+        assert torch.equal(a.tri, b.tri) and torch.equal(a.t, b.t), v
+        assert torch.equal(a.iters, b.iters), v
+    if converge:
+        assert 0 < int(a.iters.max()) < k
+
+
+def test_probe_gang_ablate_keeps_several_tiles_an_sm():
+    """pg_ablate's report: one 256-thread block a tile (a warp a gang), at
+    least two tiles resident on an SM, no stack frame."""
+    _needs_card()
+    from gpu_raytracer_tpu_torch.probes import gang
+
+    for v in gang.ABLATE_VARIANTS:
+        info = gang.kernel_info(v)
+        assert info["threads"] == gang.TILE_THREADS and info["blocks_per_sm"] >= 2, (v, info)
+        assert info["local_bytes"] == 0, (v, info)
+
+
 def test_probe_gang_converged_matches_closest_kernel(probe_wave):
     """The gang traversal run to its end finds K2's hits (ties aside)."""
     from gpu_raytracer_tpu_torch.integrators.pathtracer import DISPATCH
@@ -936,17 +978,26 @@ def test_probe_block_pop_kernel_matches_plain(scale):
 
 @pytest.mark.parametrize("body", ["A", "B", "C", "D", "E", "roll"])
 def test_probe_read_kernel_matches_plain(body):
-    """pr_read at 4,096 nodes, 16 pops, read in place and (roll) staged in
-    shared memory: bit-equal."""
+    """pr_read at 0, 1, 255 and 1,500 pops (a ragged round, more pops than
+    the block has threads, none): read in place at 4,096 nodes and staged in
+    shared memory at 1,024 (where the table fits: not E's fixed 640 KB),
+    bit-equal; its report names one 1024-thread block."""
     _needs_card()
     import numpy as np
 
     from gpu_raytracer_tpu_torch.probes import read
 
-    table = torch.as_tensor(read.probe_table(np.random.default_rng(4), body, 4096), device="cuda")
-    want = read.read_plain(body, table, 16)
-    for space in (read.SPACES if body == "roll" else ("ldg",)):
-        assert torch.equal(read.read(body, table, 16, space), want)
+    rng = np.random.default_rng(4)
+    for n, space in ((4096, "ldg"), (1024, "shared")):
+        table = torch.as_tensor(read.probe_table(rng, body, n), device="cuda")
+        if space == "shared" and table.numel() * 4 > 200_000:
+            continue
+        for pops in (0, 1, 255, 1500):
+            before = read.launches["pr_read"]
+            got = read.read(body, table, pops, space)
+            assert read.launches["pr_read"] == before + 1
+            assert torch.equal(got, read.read_plain(body, table, pops)), (n, space, pops)
+        assert read.kernel_info(body, space)["threads"] == 1024
 
 
 def test_probe_read_ceiling_is_the_device_attribute():

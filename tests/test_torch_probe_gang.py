@@ -207,6 +207,139 @@ def test_micro_matches_jax_probe(micro_inputs, stage):
     np.testing.assert_allclose(ours, ref, rtol=1e-5)
 
 
+def _layered_sort(keys, refs, layers):
+    """pg_ablate's network: lane c holds child c; a layer is one exchange
+    with the partner its map names (itself where it sits out), the lower
+    lane keeping the smaller key, a tie staying."""
+    lane = torch.arange(8)
+    for layer in layers:
+        m = gang.layer_map(layer)
+        partner = torch.tensor([(m >> (4 * c)) & 0xF for c in range(8)])
+        pk, pr = keys[..., partner], refs[..., partner]
+        swap = torch.where(lane < partner, keys > pk, pk > keys)
+        keys, refs = torch.where(swap, pk, keys), torch.where(swap, pr, refs)
+    return keys, refs
+
+
+def _serial_pushes(refs, sps, lqs, stack, leafq, variant):
+    """ablate_plain's pushes on every row (probes/gang.py: the c = 7 .. 0 loop,
+    nopush, pushbase)."""
+    if variant == "nopush":
+        return (sps + 2).clamp(max=gang.STACK_DEPTH - 1), lqs
+    if variant == "pushbase":
+        s0, l0 = sps, lqs
+        for c in range(8):
+            r = refs[..., c]
+            stack.scatter_(1, (s0 + c).clamp(max=gang.SCRAP)[..., None], r[..., None])
+            leafq.scatter_(1, (l0 + c).clamp(max=gang.QSCRAP)[..., None], (-r - 2)[..., None])
+        return ((s0 + (refs >= 0).sum(-1)).clamp(max=gang.STACK_DEPTH - 1),
+                (l0 + (refs <= -2).sum(-1)).clamp(max=gang.LEAFQ_DEPTH - 1))
+    for c in range(7, -1, -1):
+        r = refs[..., c]
+        take_n = (r >= 0) & (sps < gang.STACK_DEPTH)
+        pos = torch.full_like(sps, gang.SCRAP) if variant == "nopushst" else \
+            torch.where(take_n, sps, gang.SCRAP)
+        stack.scatter_(1, pos[..., None], r[..., None])
+        sps = sps + take_n.long()
+        take_l = (r <= -2) & (lqs < gang.LEAFQ_DEPTH)
+        pos = torch.full_like(lqs, gang.QSCRAP) if variant == "nopushst" else \
+            torch.where(take_l, lqs, gang.QSCRAP)
+        leafq.scatter_(1, pos[..., None], (-r - 2)[..., None])
+        lqs = lqs + take_l.long()
+    return sps, lqs
+
+
+def _prefix_pushes(refs, sps, lqs, stack, leafq, variant):
+    """pg_ablate's lane-parallel pushes: ballots of the node and the leaf
+    children; lane c stores at the pointer plus the count of its kind among
+    the children > c, where that slot is under the capacity (the scrap
+    slots, which no pop reads, are not stored)."""
+    nodes, leaves = refs >= 0, refs <= -2
+    if variant == "nopush":
+        return (sps + 2).clamp(max=gang.STACK_DEPTH - 1), lqs
+    c = torch.arange(8)
+    if variant == "pushbase":
+        for a, b, val, scrap in ((stack, sps, refs, gang.SCRAP),
+                                 (leafq, lqs, -refs - 2, gang.QSCRAP)):
+            slot = b[..., None] + c
+            a.scatter_(1, torch.where(slot < scrap, slot, scrap), val)
+        return ((sps + nodes.sum(-1)).clamp(max=gang.STACK_DEPTH - 1),
+                (lqs + leaves.sum(-1)).clamp(max=gang.LEAFQ_DEPTH - 1))
+    for a, b, kind, val, cap in ((stack, sps, nodes, refs, gang.STACK_DEPTH),
+                                 (leafq, lqs, leaves, -refs - 2, gang.LEAFQ_DEPTH)):
+        later = kind.flip(-1).long().cumsum(-1).flip(-1) - kind.long()  # kind among c' > c
+        slot = b[..., None] + later
+        take = kind & (slot < cap) & (variant != "nopushst")
+        a.scatter_(1, torch.where(take, slot, cap), val)  # cap: the scrap slot
+    return ((sps + nodes.sum(-1)).clamp(max=gang.STACK_DEPTH),
+            (lqs + leaves.sum(-1)).clamp(max=gang.LEAFQ_DEPTH))
+
+
+@pytest.mark.parametrize("swaps", ["SWAPS", "SWAPS_HALF"])
+def test_layered_network_and_prefix_pushes_equal_serial(swaps):
+    """The kernel's decomposition of the sort and the pushes, held equal to
+    the serial network (`_sort`) and ablate_plain's push loop on seeded keys
+    full of ties (0.0, -0.0, +inf) and refs of every kind, with stacks and
+    leaf queues near full so that the capacity checks bite; the layers are
+    the swaps in order."""
+    layers = gang.LAYERS if swaps == "SWAPS" else gang.LAYERS_HALF
+    assert [p for layer in layers for p in layer] == list(getattr(gang, swaps))
+    rng = np.random.default_rng(11)
+    B = 20_000
+    keys = torch.as_tensor(rng.choice(np.array([0.0, -0.0, np.inf, 0.5, 1.0, 2.0, 3.5],
+                                               dtype=np.float32), (B, 8)))
+    refs = torch.as_tensor(rng.choice(np.array([-1, 0, 7, 1234, -2, -3, -90], dtype=np.int32),
+                                      (B, 8)) + rng.integers(0, 3, (B, 8)).astype(np.int32)
+                           * (rng.random((B, 8)) < 0.5))
+    k_s, r_s = gang._sort(keys, refs, getattr(gang, swaps))
+    k_l, r_l = _layered_sort(keys, refs, layers)
+    assert torch.equal(k_s, k_l) and torch.equal(r_s, r_l)
+    sps = torch.as_tensor(np.where(rng.random(B) < 0.7, rng.integers(150, 161, B),
+                                   rng.integers(0, 161, B)))
+    lqs = torch.as_tensor(np.where(rng.random(B) < 0.7, rng.integers(8, 16, B),
+                                   rng.integers(0, 16, B)))
+    start = torch.as_tensor(rng.integers(-5, 5, (B, gang.STACK_DEPTH + 1)).astype(np.int32))
+    qstart = torch.as_tensor(rng.integers(-5, 5, (B, gang.LEAFQ_DEPTH + 1)).astype(np.int32))
+    for variant in ("full", "nopushst", "pushbase", "nopush"):
+        got = [start.clone(), qstart.clone()]
+        want = [start.clone(), qstart.clone()]
+        sp_g, lq_g = _prefix_pushes(r_l, sps, lqs, *got, variant)
+        sp_w, lq_w = _serial_pushes(r_s, sps, lqs, *want, variant)
+        assert torch.equal(sp_g, sp_w) and torch.equal(lq_g, lq_w), variant
+        # What a pop can read: the slots below the scrap slot.
+        assert torch.equal(got[0][:, :gang.SCRAP], want[0][:, :gang.SCRAP]), variant
+        assert torch.equal(got[1][:, :gang.QSCRAP], want[1][:, :gang.QSCRAP]), variant
+    assert int((sps + (r_s >= 0).sum(-1) > gang.STACK_DEPTH).sum()) > 1000  # stacks overflow
+
+
+def test_gang_minimum_on_unsigned_bits():
+    """The kernel's gang minimum: fminf over a thread's 4 rays, + 0.0f, then
+    the least of the 32 lanes' float bits read as unsigned. Equal to the
+    minimum over the 128 rays for keys >= 0 or +inf, -0.0 among them; without
+    the + 0.0f a -0.0 orders above +inf."""
+    rng = np.random.default_rng(12)
+    vals = np.array([0.0, -0.0, np.inf, 1e-30, 0.25, 7.0], dtype=np.float32)
+    keys = torch.as_tensor(rng.choice(vals, (4096, 32, 4), p=[.2, .2, .4, .05, .1, .05]))
+    keys[:64] = torch.where(torch.rand(64, 32, 4) < 0.99, float("inf"), -0.0)  # lone -0.0s
+    thread = torch.fmin(torch.fmin(keys[..., 0], keys[..., 1]),
+                        torch.fmin(keys[..., 2], keys[..., 3])) + 0.0
+
+    def bits_min(x):
+        u = x.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+        return u.amin(-1).to(torch.int32).view(torch.float32)
+
+    got = bits_min(thread)
+    want = keys.reshape(4096, 128).amin(-1)
+    assert torch.equal(got, want)
+    assert not bool(torch.signbit(got).any())
+    flat = keys.reshape(4096, 128)
+    zero = flat == 0
+    neg_zero = zero.any(-1) & ~(zero & ~torch.signbit(flat)).any(-1)  # only -0.0 zeros
+    assert int(neg_zero.sum()) > 0
+    raw = torch.fmin(torch.fmin(keys[..., 0], keys[..., 1]), torch.fmin(keys[..., 2], keys[..., 3]))
+    assert not torch.equal(bits_min(raw)[neg_zero], want[neg_zero])
+
+
 def test_wrappers_route_by_device(room):
     """On CPU tensors the wrappers run the plain versions (counted there);
     the kernel entry points refuse CPU tensors; two-level tables are refused."""
@@ -223,6 +356,21 @@ def test_wrappers_route_by_device(room):
         gang.ablate_plain(room.gt, room.wave, "nothing", 2)
     with pytest.raises(ValueError):
         gang.gang_table(room.tables._replace(two_level=True))
+
+
+def test_phase_counters_patch_the_kernel():
+    """tools/torch_gang_phase_cycles.py finds each of its anchors in
+    csrc/probe_gang.cu once, and refuses to run without a card."""
+    import importlib
+
+    mod = importlib.import_module("tools.torch_gang_phase_cycles")
+    with open(os.path.join(REPO, "gpu_raytracer_tpu_torch", "csrc", "probe_gang.cu")) as f:
+        source = f.read()
+    patched = mod.patch(source)
+    assert patched.count("clock64()") == 4 and 'extern "C" int pg_stats' in patched
+    with pytest.raises(ValueError):
+        mod.patch(source.replace("    busy = votes >= PG_BUSY_VOTES;\n", ""))
+    assert mod.main([]) == 1
 
 
 @pytest.mark.parametrize("tool", ["torch_exp_gang_ablate", "torch_exp_gang_micro"])

@@ -95,6 +95,45 @@ def test_ceiling_matches_vmem_probe(name):
     assert (ours == x[0, 0]).all()
 
 
+def _chunked(body, table, pops):
+    """pr_read's decomposition: CHUNK pops a round; thread t gathers values
+    e = t + 1024 j (pop e % CHUNK, read e // CHUNK) by the kernel's index
+    arithmetic; pop p's sum from 0.0 in read order; one chain over the pops'
+    sums, carried from round to round."""
+    K = read.EXTRACT if body in ("C", "roll") else read.READS
+    rows, cols = table.shape
+    flat = table.reshape(-1)
+    acc = torch.zeros((), dtype=torch.float32)
+    for p0 in range(0, pops, read.CHUNK):
+        n = min(read.CHUNK, pops - p0)
+        e = torch.arange(K * read.CHUNK)
+        i, k = p0 + e % read.CHUNK, e // read.CHUNK
+        node = {"B": i * read.STRIDE % rows, "C": i * read.STRIDE % (8 * rows),
+                "roll": i % rows}.get(body, i * read.STRIDE % cols)
+        at = {"B": node * cols + k, "C": node // 8 * cols + node % 8 * read.EXTRACT + k,
+              "roll": node * cols + (k + i % 8 * read.EXTRACT) % 128}.get(body, k * cols + node)
+        v = flat[torch.where(e % read.CHUNK < n, at, 0)]
+        if body == "D":
+            v = ((v & 0xFF) + ((v >> 8) & 0xFF) + ((v >> 16) & 0xFF) + ((v >> 24) & 0xFF)).float()
+        vals = v.view(K, read.CHUNK)[:, :n]
+        s = torch.zeros(n, dtype=torch.float32)
+        for row in vals:
+            s = s + row
+        for x in s:
+            acc = acc + x
+    return acc.expand(read.SHAPE)
+
+
+@pytest.mark.parametrize("pops", [0, 1, 255, 1500])
+def test_gather_then_chain_equals_the_scalar_loop(pops):
+    """The kernel's order of work (parallel gather, per-pop sums, one chain)
+    gives the plain version's bits for every body: ragged rounds, more pops
+    than a block has threads and no pops at all included."""
+    for body in read.READ_BODIES[:-1]:
+        table = torch.as_tensor(_table(body))
+        assert torch.equal(_chunked(body, table, pops), read.read_plain(body, table, pops)), body
+
+
 def test_bytes_and_wrappers_route_by_device():
     """The bytes a body needs count its distinct values; on CPU tensors the
     wrapper runs the plain version, the kernel entry points and the ceiling

@@ -7,14 +7,16 @@ dynamic roll and the VMEM ceiling) and tools/exp_blocksync.py's VMEM probe.
     python3 tools/torch_exp_scalar_read.py                   # on the card
     python3 tools/torch_exp_scalar_read.py --device cpu --n 4096 --pops 4
 
-Runs every body of probes/read.py (`pr_read`: one 1024-thread block, each
-thread running the probe's scalar loop) at the probes' sizes (N = 40,000,
+Runs every body of probes/read.py (`pr_read`: one 1024-thread block that
+gathers the values in parallel, sums each pop's on a thread and chains the
+sums on one) at the probes' sizes (N = 40,000,
 256 pops; inputs from seeded numpy), the roll in both spaces (read in
 place through `__ldg`, or staged into shared memory; the other tables do
 not fit one block). On the card each launch is held to its plain version
 (bit-equal) and timed (CUDA events over 7 x 10 launches behind a device
 spin), with ns a pop as the JAX tools print it, beside one `index_select`
-of the values read, and the bound; then the shared-memory ceiling: the
+of the values read and one `embedding_bag` summing them, and the bound;
+then the shared-memory ceiling: the
 largest dynamic shared memory a launch gets, against the device attribute,
 and the launch at that size timed.
 Prints the card and one JSON line a body. On the CPU the plain versions run
