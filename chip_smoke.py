@@ -16,7 +16,9 @@ nonzero):
      and binary traversal kernel, of the SVGF kernels (the variance
      kernel's two instances), of the fused shade and of K3's nine
      instances (from the hits; with the walk's u, v; textured; both; the
-     last bounce; and the four with the medium hand-over, SG_MEDIA).
+     last bounce; and the four with the medium hand-over, SG_MEDIA); and of
+     the probes pg_ablate, pr_read, pg_micro<push> and pb_pop (with its
+     cluster size).
   scene: the procedural 1920x1080 configuration (cube room, area light,
      three subdivision-6 icospheres, 245,774 triangles, merged tables) and
      the instanced one (441 instances of one subdivision-4 icosphere, room,
@@ -2499,7 +2501,7 @@ def main() -> int:
     from gpu_raytracer_tpu_torch.ops import stream_traverse as st
     from gpu_raytracer_tpu_torch.ops import svgf_stencil as sv
     from gpu_raytracer_tpu_torch.ops import wide_traverse as wt
-    from gpu_raytracer_tpu_torch.probes import gang, read
+    from gpu_raytracer_tpu_torch.probes import block, gang, read
     from gpu_raytracer_tpu_torch.scenes import (
         cornell_scene,
         instanced_scene,
@@ -2580,7 +2582,8 @@ def main() -> int:
              f"sources in {info['seconds']:.2f} s")
     for ln in regs:
         say("2", f"ptxas: {ln}")
-    for prefix in ("wt_", "bt_", "sv_", "fs_", "sg_", "pg_ablate", "pr_read"):
+    for prefix in ("wt_", "bt_", "sv_", "fs_", "sg_", "pg_ablate", "pg_micro", "pb_pop",
+                   "pr_read"):
         for name, lines in _native.ptxas_report(info["log"], prefix).items():
             say("2", f"ptxas {name}: {'; '.join(lines)}")
     infos = [(role + ("_tl" if two_level else ""), wt.kernel_info(mode, two_level))
@@ -2596,11 +2599,14 @@ def main() -> int:
     infos += [(f"probe_gang.pg_ablate<{v}>", gang.kernel_info(v)) for v in gang.ABLATE_VARIANTS]
     infos += [(f"probe_read.pr_read<{b}, {sp}>", read.kernel_info(b, sp))
               for b in read.READ_BODIES[:-1] for sp in read.SPACES]
+    infos += [("probe_gang.pg_micro<push>", gang.micro_kernel_info("push")),
+              ("probe_block.pb_pop", block.kernel_info())]
     for name, k in infos:
         say("2", f"{name}: {k['registers']} registers, {k['local_bytes']} bytes "
                  f"stack frame, {k['shared_bytes']} bytes shared a block of {k['threads']}; "
                  f"occupancy API: {k['blocks_per_sm']} blocks = "
-                 f"{k['blocks_per_sm'] * k['threads'] // 32} warps an SM, {k['sms']} SMs")
+                 f"{k['blocks_per_sm'] * k['threads'] // 32} warps an SM, {k['sms']} SMs"
+                 + (f"; cluster of {k['cluster']} block(s)" if "cluster" in k else ""))
 
     # ---- 3. per-kernel parity ----
     scene_1080 = cornell_scene(FULL_W, FULL_H)

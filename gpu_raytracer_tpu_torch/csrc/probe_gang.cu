@@ -50,12 +50,25 @@
 // needs no flag: it enters no box (te >= 0 is not < t_max) and accepts no
 // triangle (t > 1e-4 is not < t_max), as the plain version's dead mask says.
 
-// pg_micro layout (the first design, kept for the stage-by-stage probe):
-// one 1024-thread block is one TPU tile; ray tile*1024 + g*128 + l is gang g
-// (warps 4g..4g+3), lane l; the gang minimum by __shfl_xor_sync and across
-// the gang's 4 warps through shared memory behind a per-gang named barrier
-// (bar.sync 1+g, 128); one thread per gang builds the keys, runs the Batcher
-// network and the pushes.
+// pg_micro layout (redesigned for Hopper, ROADMAP C45): pg_ablate's warp a
+// gang, stage by stage. Block gg (one warp) is gang gg % 8 of tile gg / 8; a
+// thread holds rays gg * 128 + lane + 32 j (j < 4) and their acc. The gangs
+// never vote together (the TPU tool has none), so a block need not be a
+// tile: one gang a block spreads the probe's 512 gangs over every SM (a
+// tile a block, 8 warps on 64 SMs, took 1.36x as long; PERF.md). A gang's
+// stack is PG_MICRO_CAP + 1 ints of shared memory (the stack pointer never
+// passes the cap), its pointer a warp-uniform register; the pop stage pops
+// the warp's replica of gang 0's stack (nothing is pushed there, so it holds
+// gang 0's root and any warp replays gang 0's pops). Each lane reads the
+// popped row's child bounds by broadcast (__ldg float4); the gang minimum is
+// __reduce_min_sync on the float bits after + 0.0f; lane c < 8 keeps child
+// c's key and ref; the sort is pg_layer's six layers; the pushes are one
+// ballot: child c goes to sp + the taken children > c, and past the cap the
+// serial loop's last store to slot PG_MICRO_CAP (the lowest taken child) is
+// the only one made. No named barrier, no serial pusher. What bounds it: a
+// warp's own chain. The probe's 512 gangs are fewer than the card's 528
+// warp schedulers, so no other warp hides a gang's row load or the latency
+// of its slab arithmetic.
 //
 // What the variants price on this card (PERF.md): nosort/sorthalf the
 // compare-swap layers; nopush/nopushst/pushbase the pushes' shared-memory
@@ -126,34 +139,6 @@ enum {
 };
 enum { S_LOOP, S_POP, S_LOAD, S_SLAB, S_SORT, S_PUSH, S_COUNT };
 
-// The 128 threads of gang g meet at named barrier 1 + g (0 is __syncthreads).
-__device__ __forceinline__ void pg_gang_sync(int g) {
-  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(PG_LANES) : "memory");
-}
-
-#define PG_SWAP(a, b)                  \
-  if (key[a] > key[b]) {               \
-    const float tk = key[a];           \
-    key[a] = key[b];                   \
-    key[b] = tk;                       \
-    const int tr = ref[a];             \
-    ref[a] = ref[b];                   \
-    ref[b] = tr;                       \
-  }
-
-// The Batcher network of the TPU kernels: the first NSWAPS of its 19
-// compare-swaps (19, 9 for sorthalf, 0 for nosort).
-template <int NSWAPS>
-__device__ __forceinline__ void pg_batcher(float key[8], int ref[8]) {
-  if (NSWAPS == 0) return;
-  PG_SWAP(0, 1) PG_SWAP(2, 3) PG_SWAP(4, 5) PG_SWAP(6, 7) PG_SWAP(0, 2)
-  PG_SWAP(1, 3) PG_SWAP(4, 6) PG_SWAP(5, 7) PG_SWAP(1, 2)
-  if (NSWAPS > 9) {
-    PG_SWAP(5, 6) PG_SWAP(0, 4) PG_SWAP(1, 5) PG_SWAP(2, 6) PG_SWAP(3, 7)
-    PG_SWAP(2, 4) PG_SWAP(3, 5) PG_SWAP(1, 2) PG_SWAP(3, 4) PG_SWAP(5, 6)
-  }
-}
-
 // Slab test of one box (a, b, d: the child's 6 floats as three float2) for
 // one ray: tn, tf.
 __device__ __forceinline__ void pg_box(float2 a, float2 b, float2 d, float ox, float oy,
@@ -167,20 +152,6 @@ __device__ __forceinline__ void pg_box(float2 a, float2 b, float2 d, float ox, f
   const float tz1 = (d.y - oz) * iz;  // bz1
   tn = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
   tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
-}
-
-// Slab test of child c of the node row at `row` for one lane: tn, tf.
-__device__ __forceinline__ void pg_slab(const float* row, int c, float ox, float oy,
-                                        float oz, float ix, float iy, float iz,
-                                        float& tn, float& tf) {
-  const float2* q = reinterpret_cast<const float2*>(row + 6 * c);
-  pg_box(__ldg(q), __ldg(q + 1), __ldg(q + 2), ox, oy, oz, ix, iy, iz, tn, tf);
-}
-
-__device__ __forceinline__ float pg_warp_min(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(PG_FULL_MASK, v, off));
-  return v;
 }
 
 // One compare-swap layer among lanes 0..7 (the others sit out): the lower
@@ -422,77 +393,110 @@ pg_ablate_kernel(const float* __restrict__ table, int N, int L,
   if (threadIdx.x == 0) iters_out[blockIdx.x] = it;
 }
 
+// Gang g's root (its stack's slot 0) and its fallback node where its stack
+// is empty, as exp_gang_micro.py sets them.
+__device__ __forceinline__ int pg_micro_node(int it, int g, int N) {
+  return (it * 31 + g * 7919) % N;
+}
+
 template <int STAGE>
-__global__ void __launch_bounds__(PG_BLOCK)
+__global__ void __launch_bounds__(32)
 pg_micro_kernel(const float* __restrict__ table, int N, const float* __restrict__ rays,
                 int n_iters, float* __restrict__ acc_out) {
-  __shared__ int stack[PG_GANGS][PG_STACK + 1];
-  __shared__ float part[PG_GANGS][4][8];
-  const int tid = threadIdx.x;
-  const int g = tid >> 7, l = tid & 127, wg = l >> 5, lane = tid & 31;
-  const size_t r = (size_t)blockIdx.x * PG_BLOCK + tid;
-
-  for (int k = tid; k < PG_GANGS * (PG_STACK + 1); k += PG_BLOCK) (&stack[0][0])[k] = 0;
-  __syncthreads();
-  if (tid < PG_GANGS) stack[tid][0] = (tid * 7919) % N;
-  const float ox = rays[r];
-  const float oy = ox * 1.01f, oz = ox * 0.99f;
-  const float ix = 1.0f / (ox + 0.5f), iy = 1.0f / (ox + 0.6f), iz = 1.0f / (ox + 0.7f);
-  float acc = 0.0f;
-  int sp = 1;   // this gang's stack pointer (every lane of the gang keeps it)
-  int sp0 = 1;  // gang 0's: the loop and pop stages add gang 0's node id
-  __syncthreads();
+  __shared__ int stack[PG_MICRO_CAP + 1];
+  const int lane = threadIdx.x, gg = blockIdx.x;
+  // The gang whose pops this warp makes: its own, or gang 0's under `pop`.
+  const int g = STAGE == S_POP ? 0 : gg % PG_GANGS;
+  if (lane <= PG_MICRO_CAP) stack[lane] = lane == 0 ? pg_micro_node(0, g, N) : 0;
+  __syncwarp();
+  float ox[PG_RAYS], oy[PG_RAYS], oz[PG_RAYS], ix[PG_RAYS], iy[PG_RAYS], iz[PG_RAYS];
+  float acc[PG_RAYS];
+#pragma unroll
+  for (int k = 0; k < PG_RAYS; ++k) {
+    ox[k] = rays[(size_t)gg * PG_LANES + lane + 32 * k];
+    oy[k] = ox[k] * 1.01f, oz[k] = ox[k] * 0.99f;
+    ix[k] = 1.0f / (ox[k] + 0.5f), iy[k] = 1.0f / (ox[k] + 0.6f), iz[k] = 1.0f / (ox[k] + 0.7f);
+    acc[k] = 0.0f;
+  }
+  int sp = 1;  // warp-uniform
   for (int it = 0; it < n_iters; ++it) {
+    float add;  // what every ray of the gang adds (all but `load`)
     if (STAGE == S_LOOP) {
-      acc += (float)((it * 31) % N);
-      continue;
-    }
-    if (STAGE >= S_SLAB) pg_gang_sync(g);  // last pushes in; last partials read
-    const int v = sp > 0 ? stack[g][sp - 1] : (it * 31 + g * 7919) % N;
-    sp = sp > 0 ? sp - 1 : 0;
-    if (STAGE == S_POP) {
-      const int v0 = sp0 > 0 ? stack[0][sp0 - 1] : (it * 31) % N;
-      sp0 = sp0 > 0 ? sp0 - 1 : 0;
-      acc += (float)v0;
-      continue;
-    }
-    const float* row = table + (size_t)min(max(v, 0), N - 1) * WT_ROW;
-    if (STAGE == S_LOAD) {
-      acc += __ldg(row + l);
-      continue;
-    }
+      add = (float)pg_micro_node(it, 0, N);  // gang 0's fixed node
+    } else {
+      const int v = sp > 0 ? stack[sp - 1] : pg_micro_node(it, g, N);
+      sp = sp > 0 ? sp - 1 : 0;
+      const float* row = table + (size_t)min(max(v, 0), N - 1) * WT_ROW;
+      if (STAGE == S_POP) {
+        add = (float)v;
+      } else if (STAGE == S_LOAD) {
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      float tn, tf;
-      pg_slab(row, c, ox, oy, oz, ix, iy, iz, tn, tf);
-      const bool hit = (tn <= tf) && (tf > 0.0f);
-      const float m = pg_warp_min(hit ? fmaxf(tn, 0.0f) : INFINITY);
-      if (lane == 0) part[g][wg][c] = m;
-    }
-    pg_gang_sync(g);
-    float key[8];
-    int ref[8];
+        for (int k = 0; k < PG_RAYS; ++k) acc[k] += __ldg(row + lane + 32 * k);
+        continue;
+      } else {
+        // This thread's minimum over its rays of each child's entry distance.
+        float m[8];
+        const float4* q = reinterpret_cast<const float4*>(row);
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float tmin = fminf(fminf(part[g][0][c], part[g][1][c]),
-                               fminf(part[g][2][c], part[g][3][c]));
-      const int rr = (int)__ldg(row + 48 + c);
-      const bool take = rr != -1 && tmin < INFINITY;
-      key[c] = take ? tmin : INFINITY;
-      ref[c] = take ? rr : -1;
-    }
-    if (STAGE >= S_SORT) pg_batcher<19>(key, ref);
-    if (STAGE == S_PUSH) {
+        for (int p = 0; p < 4; ++p) {  // children 2p, 2p + 1: 12 floats
+          const float4 q0 = __ldg(q + 3 * p), q1 = __ldg(q + 3 * p + 1), q2 = __ldg(q + 3 * p + 2);
+          const float2 box[2][3] = {{make_float2(q0.x, q0.y), make_float2(q0.z, q0.w),
+                                     make_float2(q1.x, q1.y)},
+                                    {make_float2(q1.z, q1.w), make_float2(q2.x, q2.y),
+                                     make_float2(q2.z, q2.w)}};
 #pragma unroll
-      for (int c = 7; c >= 0; --c) {
-        const bool take = ref[c] != -1 && sp < PG_STACK;
-        if (l == 0) stack[g][take ? sp : PG_SCRAP] = ref[c];
-        sp = take ? min(sp + 1, PG_MICRO_CAP) : sp;
+          for (int h = 0; h < 2; ++h) {
+            m[2 * p + h] = INFINITY;
+#pragma unroll
+            for (int k = 0; k < PG_RAYS; ++k) {
+              float tn, tf;
+              pg_box(box[h][0], box[h][1], box[h][2], ox[k], oy[k], oz[k], ix[k], iy[k], iz[k],
+                     tn, tf);
+              if ((tn <= tf) && (tf > 0.0f)) m[2 * p + h] = fminf(m[2 * p + h], fmaxf(tn, 0.0f));
+            }
+          }
+        }
+        // Lane c < 8 keeps child c's key and ref (the gang minima, all 8
+        // reductions in flight together).
+        const int rr = lane < 8 ? (int)__ldg(row + 48 + lane) : -1;
+        float key = INFINITY;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const float tmin =
+              __uint_as_float(__reduce_min_sync(PG_FULL_MASK, __float_as_uint(m[c] + 0.0f)));
+          if (lane == c) key = tmin;
+        }
+        const bool take = rr != -1 && key < INFINITY;
+        key = take ? key : INFINITY;
+        int ref = take ? rr : -1;
+        if (STAGE >= S_SORT) {
+          pg_layer(PG_LAYER_1, lane, key, ref);
+          pg_layer(PG_LAYER_2, lane, key, ref);
+          pg_layer(PG_LAYER_3, lane, key, ref);
+          pg_layer(PG_LAYER_4, lane, key, ref);
+          pg_layer(PG_LAYER_5, lane, key, ref);
+          pg_layer(PG_LAYER_6, lane, key, ref);
+        }
+        if (STAGE == S_PUSH) {
+          // The serial loop (c = 7 .. 0) stores child c at sp, then caps sp
+          // at PG_MICRO_CAP (its sp < PG_STACK check always holds): child c's
+          // slot is sp + the taken children > c, capped, so past the cap the
+          // lowest taken child stores last.
+          const unsigned taken = __ballot_sync(PG_FULL_MASK, ref != -1);  // lanes >= 8: -1
+          const int slot = sp + __popc(taken & (lane < 8 ? ~0u << (lane + 1) : 0u));
+          if (ref != -1 && (slot < PG_MICRO_CAP || lane == __ffs(taken) - 1))
+            stack[min(slot, PG_MICRO_CAP)] = ref;
+          sp = min(sp + __popc(taken), PG_MICRO_CAP);
+          __syncwarp();  // the pushes in before the next pop reads the top
+        }
+        add = __shfl_sync(PG_FULL_MASK, key, 0);  // key[0]
       }
     }
-    acc += key[0];
+#pragma unroll
+    for (int k = 0; k < PG_RAYS; ++k) acc[k] += add;
   }
-  acc_out[r] = acc;
+#pragma unroll
+  for (int k = 0; k < PG_RAYS; ++k) acc_out[(size_t)gg * PG_LANES + lane + 32 * k] = acc[k];
 }
 
 // Layout constants, checked by ops/_native.load against probes/gang.py.
@@ -546,6 +550,22 @@ extern "C" int pg_kernel_info(int variant, int* out) {
   return kernel_report(k, PG_TILE_THREADS, out);
 }
 
+// The compiler's and the occupancy API's report of pg_micro<stage>
+// (kernel_report.cuh). Returns a cudaError_t.
+extern "C" int pg_micro_info(int stage, int* out) {
+  const void* k = nullptr;
+  switch (stage) {
+    case S_LOOP: k = (const void*)pg_micro_kernel<S_LOOP>; break;
+    case S_POP: k = (const void*)pg_micro_kernel<S_POP>; break;
+    case S_LOAD: k = (const void*)pg_micro_kernel<S_LOAD>; break;
+    case S_SLAB: k = (const void*)pg_micro_kernel<S_SLAB>; break;
+    case S_SORT: k = (const void*)pg_micro_kernel<S_SORT>; break;
+    case S_PUSH: k = (const void*)pg_micro_kernel<S_PUSH>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return kernel_report(k, 32, out);
+}
+
 // One block of 8 warps per 1024-ray tile (G tiles; rays padded by the
 // caller). Returns
 // the cudaError_t of the launch (0 on success).
@@ -580,15 +600,16 @@ extern "C" int pg_ablate(int variant, const float* table, int N, int L, const fl
   return (int)cudaGetLastError();
 }
 
-// One block per (8, 128) tile of synthetic rays (T tiles).
+// One 32-thread block a gang over T (8, 128) tiles of synthetic rays; the
+// table 16-byte aligned.
 extern "C" int pg_micro(int stage, const float* table, int N, const float* rays, int T,
                         int n_iters, float* acc_out, void* stream) {
   if (T <= 0) return 0;
   if (N <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define PG_CASE(S)                                                                 \
-  case S:                                                                          \
-    pg_micro_kernel<S><<<T, PG_BLOCK, 0, s>>>(table, N, rays, n_iters, acc_out); \
+#define PG_CASE(S)                                                                     \
+  case S:                                                                              \
+    pg_micro_kernel<S><<<T * PG_GANGS, 32, 0, s>>>(table, N, rays, n_iters, acc_out); \
     break;
   switch (stage) {
     PG_CASE(S_LOOP)

@@ -194,6 +194,8 @@ def load() -> ctypes.CDLL:
     lib.pg_kernel_info.argtypes = [ci, vp]
     lib.pg_micro.restype = ci
     lib.pg_micro.argtypes = [ci, vp, ci, vp, ci, ci, vp, vp]
+    lib.pg_micro_info.restype = ci
+    lib.pg_micro_info.argtypes = [ci, vp]
     pi = ctypes.POINTER(ci)
     lib.pf_lane.restype = ci
     lib.pf_lane.argtypes = [ci, vp, ci, ci, vp, ci, ci, vp, ci, vp, pi, vp]
@@ -206,6 +208,8 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [ci]
     lib.pb_pop.restype = ci
     lib.pb_pop.argtypes = [vp, ci, vp, vp, ci, vp, vp]
+    lib.pb_kernel_info.restype = ci
+    lib.pb_kernel_info.argtypes = [vp]
     lib.pr_smem_optin.restype = ci
     lib.pr_smem_optin.argtypes = []
     lib.pr_kernel_info.restype = ci
@@ -262,7 +266,8 @@ def load() -> ctypes.CDLL:
     if tuple(lib.pf_layout(k) for k in range(len(pf))) != pf:
         raise RuntimeError("probe_fetch.cu layout constants != probes/fetch.py")
     for src, fn, want in (
-            ("probe_block.cu", lib.pb_layout, (block.LANES, block.ROW, block.STACK, block.SP_CAP)),
+            ("probe_block.cu", lib.pb_layout,
+             (block.LANES, block.ROW, block.STACK, block.SP_CAP, block.CLUSTER)),
             ("probe_read.cu", lib.pr_layout,
              (read.SHAPE[0] * read.SHAPE[1], len(read.READ_BODIES), len(read.SPACES),
               read.STRIDE, read.CHUNK)),

@@ -21,8 +21,11 @@ On the probe's own inputs (a table uniform in [-1, 1), origins 0) every
 lane returns 1e30: tn + 1e30 rounds back to 1e30 for |tn| << 1e23. A table
 scaled by 1e29 makes best_t vary (`pop_inputs(scale=1e29)`).
 
-On a CUDA tensor `pop` launches `csrc/probe_block.cu` (`pb_pop`) and
-raises if it cannot; on a CPU tensor it runs `pop_plain`, the plain PyTorch
+On a CUDA tensor `pop` launches `csrc/probe_block.cu` (`pb_pop`: the
+tile's lanes spread over a cluster of CLUSTER blocks, the hit masks
+exchanged through distributed shared memory, every warp replaying the
+stack, the next pop's row fetched ahead from `next_candidates`) and raises
+if it cannot; on a CPU tensor it runs `pop_plain`, the plain PyTorch
 version: the same arithmetic in the same order, the stack a Python list.
 """
 
@@ -31,10 +34,12 @@ from __future__ import annotations
 import torch
 
 from gpu_raytracer_tpu_torch.ops import _native
+from gpu_raytracer_tpu_torch.ops.wide_traverse import INFO
 from gpu_raytracer_tpu_torch.probes import c_ptr, c_stream, median_ms, plain_on_card
 
 SHAPE = (8, 128)
-LANES = SHAPE[0] * SHAPE[1]   # one tile; one 1024-thread block of pb_pop
+LANES = SHAPE[0] * SHAPE[1]   # one tile
+CLUSTER = 8                   # pb_pop's blocks a tile (a cluster)
 ROW = 64                      # floats a node row
 STACK = 64
 SP_CAP = 48
@@ -96,6 +101,15 @@ def pop_plain(tab: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     return best
 
 
+def next_candidates(node: int, stack: list, sp: int, n: int) -> list:
+    """The rows `pb_pop` fetches at the top of a pop of `node`, before its
+    slab test (sp after the pop): the 8 children the pop may push, (node * 8
+    + c + 1) % n, then the entry below the popped one, stack[sp - 1] (the
+    popped node itself, slot 0, where sp is 0). The next pop reads the child
+    pushed on top, or the last where the pop pushed nothing."""
+    return [(node * 8 + c + 1) % n for c in range(8)] + [stack[max(sp - 1, 0)]]
+
+
 def pop_kernel(tab: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
                pops: int = POPS) -> torch.Tensor:
     """Launch `pb_pop` on CUDA tensors (raises otherwise)."""
@@ -112,6 +126,17 @@ def pop_kernel(tab: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     _native.check(err, "probe_block.pb_pop")
     launches["pb_pop"] += 1
     return out
+
+
+def kernel_info() -> dict:
+    """What the compiler and the occupancy API report for `pb_pop` (INFO: a
+    block of the cluster), and its cluster size."""
+    import ctypes
+
+    lib = _native.load()
+    out = (ctypes.c_int * len(INFO))()
+    _native.check(lib.pb_kernel_info(out), "probe_block.kernel_info")
+    return {**dict(zip(INFO, list(out))), "cluster": CLUSTER}
 
 
 def pop(tab: torch.Tensor, o: torch.Tensor, d: torch.Tensor, pops: int = POPS) -> torch.Tensor:

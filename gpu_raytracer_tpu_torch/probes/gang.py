@@ -35,12 +35,12 @@ row, accumulated), slab (child keys: slab test and gang minimum), sort (the
 On a CUDA tensor `ablate` / `micro` launch `csrc/probe_gang.cu`
 (`pg_ablate<VARIANT>`: one block of 8 warps a tile, a warp a gang, 4 rays a
 thread, the 19 swaps as the six compare-swap layers of `LAYERS`, the
-pushes lane-parallel; `pg_micro<STAGE>`: one 1024-thread block a tile) and
-raise if they cannot; on a
-CPU tensor they run `ablate_plain` / `micro_plain`, the plain PyTorch
-versions: the same arithmetic in the same order, vectorised over tiles,
-gangs and lanes, the fixed-iteration loop in Python, the per-gang pushes as
-8 scatter steps. Min/max are NaN-ignoring (torch.fmin/fmax, the kernel's
+pushes lane-parallel; `pg_micro<STAGE>`: the same warp a gang, stage by
+stage, one 32-thread block a gang, the capped pushes one ballot) and raise
+if they cannot; on a CPU tensor they run `ablate_plain` / `micro_plain`,
+the plain PyTorch versions: the same arithmetic in the same order,
+vectorised over tiles, gangs and lanes, the fixed-iteration loop in
+Python, the per-gang pushes as 8 scatter steps. Min/max are NaN-ignoring (torch.fmin/fmax, the kernel's
 fminf/fmaxf); float-to-int conversions truncate and saturate as the
 kernel's casts do (`trunc_i32`).
 """
@@ -468,6 +468,8 @@ def micro_kernel(table: torch.Tensor, rays: torch.Tensor, stage: str = "push",
         raise ValueError("rays must be (T, 8, 128) float32")
     if table.device.type != "cuda" or rays.device != table.device:
         raise RuntimeError("micro_kernel needs CUDA tensors on one device")
+    if table.data_ptr() % 16:
+        raise ValueError("the table must be 16-byte aligned")
     lib = _native.load()
     rays = rays.contiguous()
     acc = torch.empty_like(rays)
@@ -477,6 +479,18 @@ def micro_kernel(table: torch.Tensor, rays: torch.Tensor, stage: str = "push",
     _native.check(err, f"probe_gang.pg_micro<{stage}>")
     launches["pg_micro"] += 1
     return acc
+
+
+def micro_kernel_info(stage: str = "push") -> dict:
+    """What the compiler and the occupancy API report for
+    `pg_micro<stage>` (INFO), and its cluster size (1: no cluster)."""
+    import ctypes
+
+    lib = _native.load()
+    out = (ctypes.c_int * len(INFO))()
+    _native.check(lib.pg_micro_info(MICRO_STAGES.index(stage), out),
+                  f"probe_gang.micro_kernel_info({stage})")
+    return {**dict(zip(INFO, list(out))), "cluster": 1}
 
 
 def ablate(gt: GangTable, wave, variant: str = "full", k_iters: int = K_ITERS,

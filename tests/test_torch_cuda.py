@@ -847,11 +847,35 @@ def test_probe_gang_converged_matches_closest_kernel(probe_wave):
 
 @pytest.mark.parametrize("stage", ["loop", "pop", "load", "slab", "sort", "push"])
 def test_probe_gang_micro_kernel_matches_plain(probe_wave, stage):
+    """pg_micro (a 32-thread block a gang) against its plain version at
+    1, 4 and 64 tiles (the room's 4 bounce-1 tiles, then seeded origins) and
+    0, 1, 64 and 512 iterations: acc bit-equal, one launch a call."""
+    import numpy as np
+
     from gpu_raytracer_tpu_torch.probes import gang
 
     table, rays = gang.micro_inputs(probe_wave["gt"], probe_wave["wave"], 4)
-    assert torch.equal(gang.micro(table, rays, stage, 64),
-                       gang.micro_plain(table, rays, stage, 64))
+    more = np.random.default_rng(6).uniform(-0.4, 1.8, (60, 8, 128)).astype(np.float32)
+    rays = torch.cat([rays, torch.as_tensor(more, device="cuda")])
+    for tiles in (1, 4, 64):
+        for n_iters in (0, 1, 64, 512):
+            before = gang.launches["pg_micro"]
+            got = gang.micro(table, rays[:tiles], stage, n_iters)
+            assert gang.launches["pg_micro"] == before + 1
+            assert torch.equal(got, gang.micro_plain(table, rays[:tiles], stage, n_iters)), \
+                (tiles, n_iters)
+
+
+def test_probe_gang_micro_report():
+    """pg_micro's report: a 32-thread block (a gang), no stack frame, no
+    cluster."""
+    _needs_card()
+    from gpu_raytracer_tpu_torch.probes import gang
+
+    for s in gang.MICRO_STAGES:
+        info = gang.micro_kernel_info(s)
+        assert info["threads"] == 32 and info["local_bytes"] == 0, (s, info)
+        assert info["cluster"] == 1 and info["blocks_per_sm"] >= 1, (s, info)
 
 
 def test_probe_fetch_kernels_match_plain(probe_wave):
@@ -960,20 +984,36 @@ def _needs_card():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
 
 
-@pytest.mark.parametrize("scale", [1.0, 1e29])
-def test_probe_block_pop_kernel_matches_plain(scale):
-    """pb_pop against its plain version at 2,048 rows, 24 pops: bit-equal."""
+@pytest.mark.parametrize("n, scale", [(20_000, 1.0), (20_000, 1e29), (2048, 1e29), (37, 1.0),
+                                      (37, 1e29)])
+def test_probe_block_pop_kernel_matches_plain(n, scale):
+    """pb_pop (a cluster of blocks) against its plain version at 0, 1, 24,
+    256 and 1,000 pops on the probe's table (20,000 rows), a smaller one and
+    37 rows (the children wrap, sp reaches the cap), at both scales:
+    bit-equal, one launch a call."""
     _needs_card()
     import numpy as np
 
     from gpu_raytracer_tpu_torch.probes import block
 
     tab, o, d = (torch.as_tensor(x, device="cuda")
-                 for x in block.pop_inputs(np.random.default_rng(2), 2048, scale))
-    before = block.launches["pb_pop"]
-    a = block.pop(tab, o, d, 24)
-    assert block.launches["pb_pop"] == before + 1
-    assert torch.equal(a, block.pop_plain(tab, o, d, 24))
+                 for x in block.pop_inputs(np.random.default_rng(2), n, scale))
+    for pops in (0, 1, 24, 256, 1000):
+        before = block.launches["pb_pop"]
+        a = block.pop(tab, o, d, pops)
+        assert block.launches["pb_pop"] == before + 1
+        assert torch.equal(a, block.pop_plain(tab, o, d, pops)), pops
+
+
+def test_probe_block_pop_report():
+    """pb_pop's report: CLUSTER blocks of LANES / CLUSTER threads, no stack
+    frame."""
+    _needs_card()
+    from gpu_raytracer_tpu_torch.probes import block
+
+    info = block.kernel_info()
+    assert info["cluster"] == block.CLUSTER and info["threads"] * block.CLUSTER == block.LANES
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, info
 
 
 @pytest.mark.parametrize("body", ["A", "B", "C", "D", "E", "roll"])

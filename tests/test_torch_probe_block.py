@@ -90,6 +90,74 @@ def test_stack_caps_and_wrappers_route_by_device():
         block.pop_plain(torch.zeros(4, 48), o, d, 2)
 
 
+class _Table(torch.Tensor):
+    """The table, noting the row of every int index (pop_plain reads the
+    popped node's row so); what its operations return notes nothing."""
+
+    def __getitem__(self, i):
+        if isinstance(i, int) and getattr(self, "read", None) is not None:
+            self.read.append(i)
+        return super().__getitem__(i)
+
+
+def _replayed_pops(tab, o, d, pops):
+    """pop_plain's arithmetic with pb_pop's stack rule: a pop's 8-bit any-hit
+    mask, child c pushed at sp + the set bits below c, sp capped, the next
+    node read from the stack and checked against the candidate the kernel
+    takes it from (`block.next_candidates`: the child pushed on top, else the
+    entry below). Returns the popped nodes, best_t and the largest sp before
+    the cap."""
+    n = tab.shape[0]
+    ox, oy, oz = o
+    ix, iy, iz = (1.0 / x for x in d)
+    best = torch.full(block.SHAPE, block.FAR, dtype=torch.float32)
+    stack, node, sp, most, popped = [0] * block.STACK, 0, 0, 0, []
+    for _ in range(pops):
+        popped.append(node)
+        cand = block.next_candidates(node, stack, sp, n)
+        row, kids = tab[node], []
+        for c in range(8):
+            b = row[6 * c:6 * c + 6]
+            tx0, tx1 = (b[0] - ox) * ix, (b[3] - ox) * ix
+            ty0, ty1 = (b[1] - oy) * iy, (b[4] - oy) * iy
+            tz0, tz1 = (b[2] - oz) * iz, (b[5] - oz) * iz
+            tn = torch.maximum(torch.maximum(torch.minimum(tx0, tx1), torch.minimum(ty0, ty1)),
+                               torch.minimum(tz0, tz1))
+            tf = torch.minimum(torch.minimum(torch.maximum(tx0, tx1), torch.maximum(ty0, ty1)),
+                               torch.maximum(tz0, tz1))
+            hit = (tn <= tf) & (tf > 0.0) & (tn < best)
+            if bool(hit.any()):
+                kids.append(c)
+            best = torch.where(hit, torch.minimum(best, tn + block.FAR), best)
+        for rank, c in enumerate(kids):
+            stack[sp + rank] = cand[c]
+        most = max(most, sp + len(kids))
+        top = max(min(sp + len(kids), block.SP_CAP) - 1, 0)
+        node = stack[top]
+        assert node == cand[kids[top - sp] if kids else 8]
+        sp = top
+    return popped, best, most
+
+
+@pytest.mark.parametrize("n, scale", [(block.N, 1.0), (block.N, 1e29), (37, 1.0), (37, 1e29)])
+def test_pop_candidates_hold_the_next_row(n, scale):
+    """pb_pop fetches the next pop's row before its slab test, from
+    `next_candidates`: held on pop_plain's own loop at the probe's size (256
+    pops) on the probe's table and on 37 rows (the children wrap), at both
+    scales: the replayed rule pops the nodes pop_plain reads, in order, to
+    the same best_t; the stack passes the cap of 48 and never reaches 64 (so
+    the plain version's sp < 64 check never binds)."""
+    tab, o, d = (torch.as_tensor(x) for x in block.pop_inputs(np.random.default_rng(4), n, scale))
+    noted = torch.Tensor._make_subclass(_Table, tab)
+    noted.read = []
+    want = block.pop_plain(noted, o, d, block.POPS)
+    popped, best, most = _replayed_pops(tab, o, d, block.POPS)
+    assert popped == noted.read
+    assert torch.equal(best, want.as_subclass(torch.Tensor))
+    assert block.SP_CAP < most < block.STACK
+    assert len(set(popped)) > (5 if n == 37 else 100)
+
+
 def test_entry_point_runs_on_cpu():
     """tools/torch_exp_blocksync.py end to end at a tiny size on the CPU:
     one JSON line a table, no times (no card)."""

@@ -312,6 +312,58 @@ def test_layered_network_and_prefix_pushes_equal_serial(swaps):
     assert int((sps + (r_s >= 0).sum(-1) > gang.STACK_DEPTH).sum()) > 1000  # stacks overflow
 
 
+def _micro_serial_pushes(refs, sps, stack):
+    """micro_plain's push stage on every row: c = 7 .. 0, each taken child
+    stored at sp (an untaken one at the scrap slot), sp capped at MICRO_CAP
+    after each."""
+    for c in range(7, -1, -1):
+        r = refs[..., c]
+        take = (r != -1) & (sps < gang.STACK_DEPTH)
+        stack.scatter_(1, torch.where(take, sps, gang.SCRAP)[..., None], r[..., None])
+        sps = torch.where(take, (sps + 1).clamp(max=gang.MICRO_CAP), sps)
+    return sps
+
+
+def _micro_ballot_pushes(refs, sps, stack):
+    """pg_micro's push stage: one ballot of the taken children (ref != -1);
+    child c's slot is sp + the taken children > c; under the cap each stores
+    there, past it only the lowest taken child stores, at the cap; sp + the
+    taken count, capped."""
+    taken = refs != -1
+    later = taken.flip(-1).long().cumsum(-1).flip(-1) - taken.long()
+    slot = sps[..., None] + later
+    lowest = torch.arange(8) == taken.long().argmax(-1, keepdim=True)
+    store = taken & ((slot < gang.MICRO_CAP) | lowest)
+    stack.scatter_(1, torch.where(store, slot.clamp(max=gang.MICRO_CAP), gang.SCRAP), refs)
+    return (sps + taken.sum(-1)).clamp(max=gang.MICRO_CAP)
+
+
+def test_micro_ballot_pushes_equal_capped_serial():
+    """pg_micro's decomposition of the sort and the capped pushes, held to
+    micro_plain's serial network and push loop on seeded keys full of ties
+    (0.0, -0.0, +inf) and refs of every kind (-1 untaken, leaves, nodes),
+    with stack pointers from empty to the cap, so that the pushes end below,
+    at and past MICRO_CAP; every slot a pop can read (below the cap) and the
+    slot at the cap equal."""
+    rng = np.random.default_rng(13)
+    B = 20_000
+    keys = torch.as_tensor(rng.choice(np.array([0.0, -0.0, np.inf, 0.5, 1.0, 2.0],
+                                               dtype=np.float32), (B, 8)))
+    refs = torch.as_tensor(rng.choice(np.array([-1, -1, 0, 7, 1234, -2, -90], dtype=np.int32),
+                                      (B, 8)))
+    k_s, r_s = gang._sort(keys, refs, gang.SWAPS)
+    k_l, r_l = _layered_sort(keys, refs, gang.LAYERS)
+    assert torch.equal(k_s, k_l) and torch.equal(r_s, r_l)
+    sps = torch.as_tensor(rng.integers(0, gang.MICRO_CAP + 1, B))
+    start = torch.as_tensor(rng.integers(-5, 5, (B, gang.STACK_DEPTH + 1)).astype(np.int32))
+    got, want = start.clone(), start.clone()
+    assert torch.equal(_micro_ballot_pushes(r_l, sps, got), _micro_serial_pushes(r_s, sps, want))
+    assert torch.equal(got[:, :gang.MICRO_CAP + 1], want[:, :gang.MICRO_CAP + 1])
+    end = sps + (r_s != -1).sum(-1)
+    for case in (end < gang.MICRO_CAP, end == gang.MICRO_CAP, end > gang.MICRO_CAP + 1):
+        assert int(case.sum()) > 1000
+
+
 def test_gang_minimum_on_unsigned_bits():
     """The kernel's gang minimum: fminf over a thread's 4 rays, + 0.0f, then
     the least of the 32 lanes' float bits read as unsigned. Equal to the

@@ -6,8 +6,9 @@ ladder is tools/torch_exp_scalar_read.py's shared-memory ceiling).
     python3 tools/torch_exp_blocksync.py                     # on the card
     python3 tools/torch_exp_blocksync.py --device cpu --n 256 --pops 4
 
-Runs the block-synchronous pop loop (probes/block.py, `pb_pop`: one
-1024-thread block, the stack in shared memory) at the probe's size (an
+Runs the block-synchronous pop loop (probes/block.py, `pb_pop`: the
+tile's 1,024 lanes over a cluster of blocks, every warp replaying the
+stack) at the probe's size (an
 (N, 64) table, 20,000 rows, 256 pops; inputs from seeded numpy) on the
 probe's own table and on the table scaled by 1e29 (where best_t varies).
 On the card the kernel is held to its plain version (bit-equal) and timed
