@@ -128,9 +128,11 @@ nonzero):
      must equal cudaDevAttrMaxSharedMemoryPerBlockOptin with 16 bytes more
      refused; pp_gang, 11 bodies at the probes' iteration counts on the own
      and a chase table, `full` also on the own table times 1e4 (parity
-     at 256 iterations); pd_copy, 20 bodies with
-     cp.async and the TMA bulk copy (the whole-table ones on a 2-block
-     cluster), the 16 KB-window ones also at 132 blocks. No probe is on a
+     at 256 iterations; full, smem, v1, v2 at 2,051), v1, v2 and smem
+     beside one `index_select` and `torch.sum` of the values read;
+     pd_copy, 20 bodies with cp.async and the TMA bulk copy (the window
+     ones through a ring of copies in flight, the whole-table ones on a
+     2-block cluster), the 16 KB-window ones also at 132 blocks. No probe is on a
      render path: their launches in the slices below are 0.
   3mx. K3 on the mixed scene's captured 777,600-lane bounce-1 and
      last-bounce waves (the port's curves, the texture taps in the kernel)
@@ -849,7 +851,10 @@ def phase_probes_small(results: dict) -> None:
     kernels line's library call); the shared-memory ceiling against the
     device attribute; every gang-primitive body at the probes' iteration
     counts on the own and the chase tables, `full` on the table times 1e4
-    (parity at 256 iterations); every
+    (parity at 256 iterations; full, smem, v1 and v2, which have kernels of
+    their own, at 2,051: past two of v1's and v2's chunks and past smem's
+    fixed point at 62), v1, v2 and smem beside one `index_select` and one
+    `torch.sum` of the values they read; every
     copy body with both mechanisms at one block, and the 16 KB-window bodies
     at one block an SM. The kernels line takes the pop loop on the own
     table, read body A, `stack` on the chase table and exp_dma.py k_smem
@@ -2501,7 +2506,7 @@ def main() -> int:
     from gpu_raytracer_tpu_torch.ops import stream_traverse as st
     from gpu_raytracer_tpu_torch.ops import svgf_stencil as sv
     from gpu_raytracer_tpu_torch.ops import wide_traverse as wt
-    from gpu_raytracer_tpu_torch.probes import block, gang, read
+    from gpu_raytracer_tpu_torch.probes import block, dma, gang, prims, read
     from gpu_raytracer_tpu_torch.scenes import (
         cornell_scene,
         instanced_scene,
@@ -2583,7 +2588,7 @@ def main() -> int:
     for ln in regs:
         say("2", f"ptxas: {ln}")
     for prefix in ("wt_", "bt_", "sv_", "fs_", "sg_", "pg_ablate", "pg_micro", "pb_pop",
-                   "pr_read"):
+                   "pr_read", "pp_", "pd_"):
         for name, lines in _native.ptxas_report(info["log"], prefix).items():
             say("2", f"ptxas {name}: {'; '.join(lines)}")
     infos = [(role + ("_tl" if two_level else ""), wt.kernel_info(mode, two_level))
@@ -2601,12 +2606,16 @@ def main() -> int:
               for b in read.READ_BODIES[:-1] for sp in read.SPACES]
     infos += [("probe_gang.pg_micro<push>", gang.micro_kernel_info("push")),
               ("probe_block.pb_pop", block.kernel_info())]
+    infos += [(f"probe_prims.pp_gang<{b}>", prims.kernel_info(b)) for b in prims.OWN_KERNELS]
+    infos += [(f"probe_dma.pd_copy<{m}, array>, {dma.ITERS} copies", dma.kernel_info(m))
+              for m in dma.MECHS]
     for name, k in infos:
         say("2", f"{name}: {k['registers']} registers, {k['local_bytes']} bytes "
                  f"stack frame, {k['shared_bytes']} bytes shared a block of {k['threads']}; "
                  f"occupancy API: {k['blocks_per_sm']} blocks = "
                  f"{k['blocks_per_sm'] * k['threads'] // 32} warps an SM, {k['sms']} SMs"
-                 + (f"; cluster of {k['cluster']} block(s)" if "cluster" in k else ""))
+                 + (f"; cluster of {k['cluster']} block(s)" if "cluster" in k else "")
+                 + (f"; a ring of {k['ring']} copies" if "ring" in k else ""))
 
     # ---- 3. per-kernel parity ----
     scene_1080 = cornell_scene(FULL_W, FULL_H)

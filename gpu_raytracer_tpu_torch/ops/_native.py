@@ -218,8 +218,12 @@ def load() -> ctypes.CDLL:
     lib.pr_read.argtypes = [ci, ci, vp, ci, ci, ci, ci, vp, vp]
     lib.pp_gang.restype = ci
     lib.pp_gang.argtypes = [ci, vp, vp, vp, ci, ci, vp, vp]
+    lib.pp_kernel_info.restype = ci
+    lib.pp_kernel_info.argtypes = [ci, vp]
     lib.pd_copy.restype = ci
     lib.pd_copy.argtypes = [ci, ci, ci, vp, ci, ci, ci, ci, ci, ci, vp, ci, ci, ci, vp, vp]
+    lib.pd_kernel_info.restype = ci
+    lib.pd_kernel_info.argtypes = [ci, ci, ci, ci, vp]
     if lib.bt_stack_depth() != binary_traverse.STACK_DEPTH:
         raise RuntimeError("binary_traverse.cu BT_STACK != STACK_DEPTH")
     if lib.sv_variance_static_pow() != svgf_stencil.VARIANCE_STATIC_POW:
@@ -272,7 +276,8 @@ def load() -> ctypes.CDLL:
              (read.SHAPE[0] * read.SHAPE[1], len(read.READ_BODIES), len(read.SPACES),
               read.STRIDE, read.CHUNK)),
             ("probe_prims.cu", lib.pp_layout,
-             (prims.GANGS, prims.LANES, prims.STACK, len(prims.PRIMS_BODIES), prims.STRIDE)),
+             (prims.GANGS, prims.LANES, prims.STACK, len(prims.PRIMS_BODIES), prims.STRIDE,
+              prims.CHUNK)),
             ("probe_dma.cu", lib.pd_layout,
              (dma.TILE, len(dma.MECHS), len(dma.OFFSETS), len(dma.OUTS)))):
         if tuple(fn(k) for k in range(len(want))) != want:

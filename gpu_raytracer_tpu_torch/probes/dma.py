@@ -34,9 +34,13 @@ copy mechanism MECH: "cp_async", 16-byte cp.async by every thread, or
 "bulk", the TMA 1-D bulk copy issued by one thread and completed on an
 mbarrier) and raises if it cannot; on a CPU tensor it runs `copy_plain`:
 the windows gathered, the values read and summed in the same order.
+A block keeps up to PD_RING copies in flight (`kernel_info`'s "ring"),
+each in a slot of its own, and refills a slot once thread 0, the only
+thread that reads a window before the last, has read it (ROADMAP C46).
 A destination larger than one block's shared memory is split over a
 2-block cluster, each block holding half and the reading block taking its
-values from the owner through distributed shared memory.
+values from the owner through distributed shared memory once the owner
+has signalled that its half landed.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from typing import NamedTuple
 import torch
 
 from gpu_raytracer_tpu_torch.ops import _native
+from gpu_raytracer_tpu_torch.ops.wide_traverse import INFO
 from gpu_raytracer_tpu_torch.probes import c_ptr, c_stream, median_ms, plain_on_card
 
 SHAPE = (8, 128)
@@ -238,6 +243,19 @@ def copy_kernel(name: str, mech: str, table: torch.Tensor, offs: torch.Tensor = 
     _native.check(err, f"probe_dma.pd_copy<{name}, {mech}>")
     launches["pd_copy"] += 1
     return out
+
+
+def kernel_info(mech: str = "bulk", offset: str = "array", iters: int = ITERS) -> dict:
+    """What the compiler and the occupancy API report for the ring kernel
+    `pd_copy<mech, offset>` with the ring it runs for `iters` copies of a
+    16 KB window (INFO, and "ring": its slots)."""
+    import ctypes
+
+    lib = _native.load()
+    out = (ctypes.c_int * (len(INFO) + 1))()
+    _native.check(lib.pd_kernel_info(MECHS.index(mech), OFFSETS.index(offset), WINDOW, iters, out),
+                  f"probe_dma.kernel_info({mech}, {offset})")
+    return {**dict(zip(INFO, list(out))), "ring": out[len(INFO)]}
 
 
 def copy(name: str, mech: str, table: torch.Tensor, offs: torch.Tensor = None,

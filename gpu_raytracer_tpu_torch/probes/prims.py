@@ -29,11 +29,16 @@ its second iteration on, and `full` returns 0.5 everywhere (s * 1e-9
 vanishes beside 0.5); `chase_table` makes column 5 a random cycle over the
 rows, and a table times SCALED makes `full` vary.
 
-On a CUDA tensor `prims` launches `csrc/probe_prims.cu` (`pp_gang<BODY>`:
-one 1024-thread block, gang g = threads 128g .. 128g + 127) and raises if
-it cannot; on a CPU tensor it runs `prims_plain`: the same arithmetic in
-the same f32 order, the gangs a batch dimension, the iterations a Python
-loop, float-to-int as the kernel's truncating cast (`gang.trunc_i32`).
+On a CUDA tensor `prims` launches `csrc/probe_prims.cu` and raises if it
+cannot: `pp_gang_kernel<BODY>` (one 1024-thread block, gang g = threads
+128g .. 128g + 127) for the chases; for v1 and v2 a gather of CHUNK
+iterations' values at once, summed by one thread in iteration order; for
+smem the stacks' tops in registers and 128 threads summing the row all 8
+gangs add; for full a warp a gang, the chase an iteration ahead of the
+arithmetic (ROADMAP C46). On a CPU tensor it runs `prims_plain`: the same
+arithmetic in the same f32 order, the gangs a batch dimension, the
+iterations a Python loop, float-to-int as the kernel's truncating cast
+(`gang.trunc_i32`).
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from __future__ import annotations
 import torch
 
 from gpu_raytracer_tpu_torch.ops import _native
+from gpu_raytracer_tpu_torch.ops.wide_traverse import INFO
 from gpu_raytracer_tpu_torch.probes import c_ptr, c_stream, median_ms, plain_on_card
 from gpu_raytracer_tpu_torch.probes.gang import trunc_i32
 
@@ -50,6 +56,7 @@ PRIMS_BODIES = ("single", "stack", "scratch", "full", "smem", "cond", "maskupd",
                 "v1", "v2", "v3", "v4")
 STACK = 64           # k_smem: (8, 64) int32, slot 63 the scrap
 STRIDE = 1237
+CHUNK = 1024         # v1, v2: iterations gathered at once (probe_prims.cu PP_CHUNK)
 FULL_SCALE = 1e-9
 # `full` on its own table returns 0.5 everywhere; on the table times
 # SCALED its output varies by gang and stays finite over the probe's 100,000
@@ -72,6 +79,9 @@ SITES = {
 OPS_PER_ITER = {"single": 2, "stack": 1024, "scratch": 1024, "full": 20 * 1024,
                 "smem": 1024 + 8 * 4, "cond": 1024, "maskupd": 2 * 1024, "v1": 2, "v2": 1,
                 "v3": 1, "v4": 128}
+
+# The bodies with kernels of their own (the others run pp_gang_kernel).
+OWN_KERNELS = ("full", "smem", "v1", "v2")
 
 launches = {"pp_gang": 0}
 plain_calls = {"pp_gang": 0}
@@ -170,6 +180,21 @@ def prims_kernel(body: str, table: torch.Tensor, table2: torch.Tensor, seed: tor
     return out
 
 
+def kernel_info(body: str = "stack") -> dict:
+    """What the compiler and the occupancy API report for the kernel that
+    runs `body` (INFO; single, scratch, cond, maskupd, v3 and v4 share
+    stack's `pp_gang_kernel`)."""
+    import ctypes
+
+    if body not in ("stack", *OWN_KERNELS):
+        raise ValueError(f"body {body!r} has no report; ask for 'stack' or one of {OWN_KERNELS}")
+    lib = _native.load()
+    out = (ctypes.c_int * len(INFO))()
+    _native.check(lib.pp_kernel_info(PRIMS_BODIES.index(body), out),
+                  f"probe_prims.kernel_info({body})")
+    return dict(zip(INFO, list(out)))
+
+
 def prims(body: str, table: torch.Tensor, table2: torch.Tensor, seed: torch.Tensor,
           iters: int) -> torch.Tensor:
     """The kernel on a CUDA table, the plain version on a CPU one."""
@@ -256,13 +281,46 @@ def rows_read(body: str, table, table2, seed, iters: int) -> int:
     return len(seen)
 
 
+def smem_rows(seeds, iters: int, n: int) -> list:
+    """The row `smem` adds at each iteration: the sum of the 8 gangs' pops
+    & (n - 1), each stack its top (a push goes just above the slot popped
+    until the stack is full, then to the scrap slot, and nothing moves)."""
+    top, sp, out = [int(x) for x in seeds], 1, []
+    for i in range(iters):
+        out.append(sum(top) & (n - 1))
+        if sp >= STACK - 1:  # full: every later pop is this one
+            return out + out[-1:] * (iters - i - 1)
+        top, sp = [(t + i) & (n - 1) for t in top], sp + 1
+    return out
+
+
+def library_call(body: str, table: torch.Tensor, seed: torch.Tensor, iters: int):
+    """One `index_select` of the values `body` reads, then one `torch.sum`:
+    its value up to the order of the sum (v1, v2 a scalar, smem a row of
+    128), a call with no arguments; None for the chases, which no library
+    call computes."""
+    n = table.shape[0]
+    if body in ("v1", "v2"):
+        at = torch.arange(iters, dtype=torch.int64, device=table.device) * STRIDE % n * LANES
+        idx = torch.stack((at, at + 64), 1).reshape(-1) if body == "v1" else at
+        flat = table.reshape(-1)
+        return lambda: torch.sum(flat.index_select(0, idx))
+    if body == "smem":
+        idx = torch.as_tensor(smem_rows(seed[:, 0].tolist(), iters, n), device=table.device)
+        return lambda: torch.sum(table.index_select(0, idx), dim=0)
+    return None
+
+
 def probe_prims(device, iters: int = ITERS, iters2=ITERS2, n: int = N, seed: int = 0,
                 parity_iters: int = 256, timer=None) -> list:
     """Every body at the probes' iteration counts, on the probes' own tables
-    and on the chase tables, and `full` on the scaled table. On the card each body against its plain version
-    at `parity_iters` iterations (bit-equal), then the kernel timed with
-    `timer` at the probe's count, ns an iteration as the JAX tools print it;
-    on the CPU the plain version at `iters`, no times."""
+    and on the chase tables, and `full` on the scaled table. On the card each
+    body against its plain version at `parity_iters` iterations (the bodies
+    of OWN_KERNELS at 2 * CHUNK + 3: past two chunks and past the stacks'
+    filling at 62) (bit-equal), then the kernel timed with `timer` at the
+    probe's count, ns an iteration as the JAX tools print it, and for v1, v2
+    and smem `library_call` timed beside it (`library_ms`); on the CPU the
+    plain version at `iters`, no times."""
     import numpy as np
 
     inp = probe_inputs(np.random.default_rng(seed), n)
@@ -277,9 +335,10 @@ def probe_prims(device, iters: int = ITERS, iters2=ITERS2, n: int = N, seed: int
             res = prims(body, t, t2, sd, it)
             row = {"kernel": "pp_gang", "body": body, "probe": SITES[body], "table": kind,
                    "iters": it, "device": t.device.type, "ms": None, "ns_per_iter": None,
-                   "plain_ms": None, "distinct": int(torch.unique(res).numel())}
+                   "plain_ms": None, "library_ms": None,
+                   "distinct": int(torch.unique(res).numel())}
             if t.device.type == "cuda":
-                pi = min(it, parity_iters)
+                pi = min(it, 2 * CHUNK + 3 if body in OWN_KERNELS else parity_iters)
                 k = prims_kernel(body, t, t2, sd, pi)
                 ref, row["plain_ms"] = plain_on_card(lambda: prims_plain(body, t, t2, sd, pi))
                 if not torch.equal(k, ref):
@@ -288,6 +347,9 @@ def probe_prims(device, iters: int = ITERS, iters2=ITERS2, n: int = N, seed: int
                 row.update(median_ms(timer, lambda: prims_kernel(body, t, t2, sd, it)),
                            parity_iters=pi)
                 row["ns_per_iter"] = 1e6 * row["ms"] / it
+                call = library_call(body, t, sd, it)
+                if call is not None:
+                    row["library_ms"] = median_ms(timer, call)["ms"]
             r = rows_read(body, inp[first], inp[second], inp["seed"], it)
             row["rows"] = r
             row["bytes"], row["ops"] = needed(body, r, it)

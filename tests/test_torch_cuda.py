@@ -1069,6 +1069,54 @@ def test_probe_prims_kernel_matches_plain(body):
                            prims.prims_plain(body, t, t2, inp["seed"], 40))
 
 
+@pytest.mark.parametrize("body", ["full", "smem", "v1", "v2"])
+def test_probe_prims_redesigned_bodies_at_edges(body):
+    """The four bodies with kernels of their own (a warp a gang, the stack
+    tops in registers, the chunked gather and ordered sum) at 0, 1, 62, 63
+    (smem's stacks fill at 62), a chunk +- 1 and two chunks + 3 iterations,
+    on the own, chase and scaled tables at 4096 rows: bit-equal, each call a
+    launch of the body's own kernel."""
+    _needs_card()
+    import numpy as np
+
+    from gpu_raytracer_tpu_torch.probes import prims
+
+    inp = {k: torch.as_tensor(v, device="cuda")
+           for k, v in prims.probe_inputs(np.random.default_rng(7)).items()}
+    info = prims.kernel_info(body)
+    assert info["threads"] == {"full": 32, "smem": 128}.get(body, 1024)
+    for t, t2 in ((inp["table"], inp["table2"]), (inp["chase"], inp["chase2"]),
+                  (inp["scaled"], inp["table2"])):
+        for it in (0, 1, 62, 63, prims.CHUNK - 1, prims.CHUNK + 1, 2 * prims.CHUNK + 3):
+            before = prims.launches["pp_gang"]
+            got = prims.prims(body, t, t2, inp["seed"], it)
+            assert prims.launches["pp_gang"] == before + 1
+            assert torch.equal(got, prims.prims_plain(body, t, t2, inp["seed"], it)), it
+
+
+@pytest.mark.parametrize("mech", ["cp_async", "bulk"])
+@pytest.mark.parametrize("count", ["1", "K", "K+1", "64"])
+def test_probe_dma_ring_matches_plain(mech, count):
+    """The 16 KB-window bodies at 1, K, K + 1 and 64 copies (K the ring's
+    slots at the probes' 64 copies), on 1 and 132 windows at once (each its
+    own offsets): exact, each body a launch, through a ring of min(K,
+    copies) slots."""
+    _needs_card()
+    from gpu_raytracer_tpu_torch.probes import dma
+
+    K = dma.kernel_info(mech)["ring"]
+    assert K > 1
+    iters = {"1": 1, "K": K, "K+1": K + 1, "64": 64}[count]
+    for blocks in (1, 132):
+        before = dma.launches["pd_copy"]
+        rows = dma.probe_copies("cuda", iters, blocks, timer=lambda fn: [0.0], mechs=(mech,),
+                                bodies=dma.WINDOW_BODIES)
+        assert len(rows) == len(dma.WINDOW_BODIES)
+        assert dma.launches["pd_copy"] >= before + len(dma.WINDOW_BODIES)
+    for offset in dma.OFFSETS:
+        assert dma.kernel_info(mech, offset, iters=iters)["ring"] == min(K, iters)
+
+
 @pytest.mark.parametrize("mech", ["cp_async", "bulk"])
 def test_probe_dma_kernel_matches_plain(mech):
     """pd_copy, every body at the probes' sizes with 6 copies where they

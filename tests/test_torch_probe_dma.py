@@ -126,3 +126,74 @@ def test_entry_point_runs_on_cpu():
     lines = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith("{")]
     assert len(lines) == len(dma.BODIES) * len(dma.MECHS)
     assert all(x["device"] == "cpu" and x["ms"] is None for x in lines)
+
+
+def _ring_schedule(iters: int, ring: int) -> list:
+    """The ring kernel's loop (csrc/probe_dma.cu pd_copy_kernel) as events:
+    ("read", copy, slot, parity) where thread 0 waits for a copy and reads
+    it, ("issue", copy, slot) where a copy goes out, and the last copy's
+    read by every thread after the loop. K = min(ring, iters) slots; at
+    iteration c copy c - K is read from slot c % K, then copy c issued into
+    it; cp.async commits one group an iteration."""
+    K = min(ring, iters)
+    out, s, q = [], 0, 0
+    for c in range(iters + K):
+        if c >= K:
+            out.append(("read", c - K, s, (q - 1) & 1))
+        if c < iters:
+            out.append(("issue", c, s))
+        s += 1
+        if s == K:
+            s, q = 0, q + 1
+    out.append(("last", iters - 1, (iters - 1) % K, (iters - 1) // K & 1))
+    return out
+
+
+@pytest.mark.parametrize("ring", [2, 4, 8])
+@pytest.mark.parametrize("count", ["1", "K-1", "K", "K+1", "64"])
+def test_ring_reads_each_copy_from_its_slot(ring, count):
+    """The ring's slot and phase schedule at iters = 1, K - 1, K, K + 1 and
+    64: every copy is read once, in copy order, from the slot it was staged
+    into, at the parity of its own phase of that slot's mbarrier; no slot is
+    refilled before its copy is read; cp.async's wait_group K - 1 has seen
+    the copy's group complete; the last copy's slot is never refilled."""
+    iters = {"1": 1, "K-1": ring - 1, "K": ring, "K+1": ring + 1, "64": 64}[count]
+    K = min(ring, iters)
+    held = {}       # slot: the copy in it, not yet read
+    phases = {}     # slot: copies staged into it so far
+    staged = {}     # copy: (slot, its phase of the slot, its commit group)
+    reads = []
+    group = 0
+    for ev in _ring_schedule(iters, ring):
+        if ev[0] == "issue":
+            _, c, slot = ev
+            assert slot < K and slot not in held  # read before refilled
+            held[slot] = c
+            staged[c] = (slot, phases.get(slot, 0), c)
+            phases[slot] = phases.get(slot, 0) + 1
+            group = c
+        elif ev[0] == "read":
+            _, c, slot, parity = ev
+            assert held.pop(slot) == c and staged[c][0] == slot
+            assert parity == staged[c][1] & 1
+            # wait_group K - 1 at iteration c + K: groups 0 .. c + K - 1 are
+            # committed, so every group up to c is complete
+            assert staged[c][2] <= (c + K - 1) - (K - 1)
+            reads.append(c)
+        else:
+            _, c, slot, parity = ev
+            assert staged[c][0] == slot and parity == staged[c][1] & 1
+            assert phases[slot] == staged[c][1] + 1  # its slot's last phase
+    assert reads == list(range(iters)) and not held and group == iters - 1
+
+
+def test_entry_point_runs_trees_in_turns_on_cpu(capfd):
+    """--trees runs the tool once a tree, each in a process of its own that
+    imports the tree's package, and tags every line with its tree."""
+    import importlib
+
+    mod = importlib.import_module("tools.torch_exp_dma")
+    assert mod.main(["--device", "cpu", "--iters", "2", "--trees", "."]) == 0
+    lines = [json.loads(x) for x in capfd.readouterr().out.splitlines() if x.startswith("{")]
+    assert [x["tree"] for x in lines] == ["."] * (len(dma.BODIES) * len(dma.MECHS))
+    assert all(x["device"] == "cpu" and x["ms"] is None for x in lines)

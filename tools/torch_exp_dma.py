@@ -5,6 +5,7 @@ exp_dma3.py and exp_dma4.py.
 
     python3 tools/torch_exp_dma.py                           # on the card
     python3 tools/torch_exp_dma.py --device cpu --iters 2    # plain versions
+    python3 tools/torch_exp_dma.py --trees .chip/parent . . .chip/parent PD_RING=2
 
 Runs every body of the four probes that runs (probes/dma.py BODIES,
 `pd_copy`) with both mechanisms (16-byte cp.async by every thread; the TMA
@@ -25,9 +26,14 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 
 def main(argv=None) -> int:
+    from torch_time_traverse import run_in_trees, tool_root
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    rest = tool_root(argv)
     from gpu_raytracer_tpu_torch import probes
     from gpu_raytracer_tpu_torch.probes import dma
 
@@ -35,7 +41,15 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--iters", type=int, default=dma.ITERS, help="copies where the probe loops")
     ap.add_argument("--blocks", type=int, default=132, help="windows at once (the card only)")
+    ap.add_argument("--trees", nargs="+", help="run in turns in each tree: a checkout (`.` this "
+                    "one) or NAME=VALUE[,...], this tree with those constexpr constants of its "
+                    "CUDA sources (tools/torch_time_traverse.py); each line gains its tree")
+    ap.add_argument("--root", help=argparse.SUPPRESS)  # a tree's run
     args = ap.parse_args(argv)
+    if args.trees:
+        return run_in_trees(__file__, args.trees, rest)
+    if args.root and not probes.__file__.startswith(os.path.abspath(args.root) + os.sep):
+        raise SystemExit(f"imported {probes.__file__}, not the tree {args.root}")
     timer = None
     if args.device != "cpu":
         timer = probes.device_ms

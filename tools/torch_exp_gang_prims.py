@@ -6,6 +6,8 @@ tools/exp_gang_prims2.py.
     python3 tools/torch_exp_gang_prims.py                    # on the card
     python3 tools/torch_exp_gang_prims.py --device cpu --n 256 --iters 3 \\
         --iters2 2 4                                   # plain versions, tiny
+    python3 tools/torch_exp_gang_prims.py --trees .chip/parent . . .chip/parent \\
+        PP_FULL_WARPS=8                               # trees in turns
 
 Runs the eleven bodies of probes/prims.py (`pp_gang`: one 1024-thread
 block, gang g = 4 warps) at the probes' sizes and iteration counts (4096 x
@@ -27,9 +29,14 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 
 def main(argv=None) -> int:
+    from torch_time_traverse import run_in_trees, tool_root
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    rest = tool_root(argv)
     from gpu_raytracer_tpu_torch import probes
     from gpu_raytracer_tpu_torch.probes import prims
 
@@ -39,7 +46,15 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=prims.ITERS, help="exp_gang_prims bodies")
     ap.add_argument("--iters2", type=int, nargs="+", default=list(prims.ITERS2),
                     help="exp_gang_prims2 bodies")
+    ap.add_argument("--trees", nargs="+", help="run in turns in each tree: a checkout (`.` this "
+                    "one) or NAME=VALUE[,...], this tree with those constexpr constants of its "
+                    "CUDA sources (tools/torch_time_traverse.py); each line gains its tree")
+    ap.add_argument("--root", help=argparse.SUPPRESS)  # a tree's run
     args = ap.parse_args(argv)
+    if args.trees:
+        return run_in_trees(__file__, args.trees, rest)
+    if args.root and not probes.__file__.startswith(os.path.abspath(args.root) + os.sep):
+        raise SystemExit(f"imported {probes.__file__}, not the tree {args.root}")
     timer = None
     if args.device != "cpu":
         timer = probes.probe_ms

@@ -247,6 +247,41 @@ def resolve_tree(spec: str, made: dict) -> str:
     return path
 
 
+def run_in_trees(script: str, specs: list, argv: list) -> int:
+    """Run the probe tool `script` once a tree (a spec as --trees takes it),
+    in turns, each run in a process of its own whose --root puts the tree's
+    package first on sys.path; print each JSON line it prints with "tree":
+    the spec. Returns the last failing run's exit code, else 0."""
+    made, rc = {}, 0
+    for spec in specs:
+        path = resolve_tree(spec, made)
+        proc = subprocess.run([sys.executable, os.path.abspath(script), "--root", path, *argv],
+                              capture_output=True, text=True)
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                print(json.dumps({"tree": spec, **json.loads(line)}), flush=True)
+        if proc.returncode:
+            sys.stderr.write(f"{spec}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+            rc = proc.returncode
+    return rc
+
+
+def tool_root(argv: list) -> list:
+    """A probe tool's arguments without --trees and its specs; with --root
+    DIR, DIR's package first on sys.path (a tree's run)."""
+    if "--root" in argv:
+        root = os.path.abspath(argv[argv.index("--root") + 1])
+        if not os.path.isdir(os.path.join(root, PKG)):
+            raise SystemExit(f"--root {root}: no {PKG}/ there")
+        sys.path.insert(0, root)
+    if "--trees" not in argv:
+        return list(argv)
+    k = argv.index("--trees") + 1
+    while k < len(argv) and not argv[k].startswith("--"):
+        k += 1
+    return argv[:argv.index("--trees")] + argv[k:]
+
+
 # ---------------------------------------------------------------------------
 # Waves and the plain versions (this tree)
 # ---------------------------------------------------------------------------
