@@ -850,11 +850,13 @@ def phase_probes_small(results: dict) -> None:
     one `index_select` of its values and one `embedding_bag` summing them (the
     kernels line's library call); the shared-memory ceiling against the
     device attribute; every gang-primitive body at the probes' iteration
-    counts on the own and the chase tables, `full` on the table times 1e4
-    (parity at 256 iterations; full, smem, v1 and v2, which have kernels of
-    their own, at 2,051: past two of v1's and v2's chunks and past smem's
-    fixed point at 62), v1, v2 and smem beside one `index_select` and one
-    `torch.sum` of the values they read; every
+    counts on the own and the chase tables, the seven chasing bodies also on
+    a random-map table (a tail into a short cycle), `full` on the table times
+    1e4 (parity for the chasing bodies at 2n + 3 = 8,195 iterations: past
+    the walk's longest path and two of its wraps; for full, smem, v1 and v2
+    at 2,051: past two of v1's and v2's chunks and past smem's fixed point at
+    62), v1, v2 and smem beside one `index_select` and one `torch.sum` of the
+    values they read; every
     copy body with both mechanisms at one block, and the 16 KB-window bodies
     at one block an SM. The kernels line takes the pop loop on the own
     table, read body A, `stack` on the chase table and exp_dma.py k_smem

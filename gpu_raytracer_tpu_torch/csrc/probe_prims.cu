@@ -9,21 +9,41 @@
 //                             through `run` (call :43)
 // probes/prims.py holds the plain versions and what each body computes.
 //
-// pp_gang_kernel<BODY> (single, stack, scratch, cond, maskupd, v3, v4): one
-// 1024-thread block is the (8, 128) tile; gang g is threads 128g .. 128g + 127
-// (4 warps), lane l = thread % 128 owns out[g, l]. Each gang keeps its own
-// chased row index (every lane of the gang holds the same value, so no
-// exchange is needed); a row load is each lane's own column (four coalesced
-// 128-byte lines a gang) with row[5], the next index, read by every lane as a
-// warp-uniform broadcast. `cond` is a gang-uniform branch between the two
-// tables. These bodies are chains of dependent row loads, one block on one
-// SM: on the probe's own table every chase reads row 0 from its second
-// iteration on (an L1 hit); on a chase table whose column 5 is a random cycle
-// over the 2 MB table each iteration waits on an L2 hit. They sit at the
-// card's load prices (PERF.md), and their design is the first one.
+// pp_path_kernel<BODY> (single, stack, scratch, cond, maskupd, v3, v4): every
+// body chases rows through next = int(row[5]) & (n - 1), a map of the n rows
+// onto themselves, so a chase enters a cycle within n steps: after a tail of
+// mu steps it repeats a cycle of lam rows, mu + lam <= n (on the probes' own
+// table mu <= 1, lam = 1; on a chase table mu = 0, lam = n). A block
+//   1. reads column 5 of every row in parallel into the next-row map in
+//      shared memory (`cond`: row v's from `table` where v is odd, else from
+//      `table2`), and a stamp for each row;
+//   2. walks the chase once from its seed through the map on one thread,
+//      PP_WALK steps at a time (a chain of dependent shared-memory reads and
+//      nothing else), while its warp stamps each row with the step that
+//      first reached it between two batches, until a row reached again
+//      (mu its stamp, lam the step less it) or `iters` steps: at most n +
+//      PP_WALK steps;
+//   3. stages the values each iteration adds for the path's rows, in path
+//      order, over the map: the cycle repeated to a run of at least PP_RUN
+//      iterations, so the chain below reads it as long contiguous runs;
+//   4. runs each output element's chain in the plain version's f32 order on
+//      one thread, reading the staged values PP_UNROLL iterations ahead
+//      (their addresses never depend on acc): the head of the path once,
+//      then the cycle run after run, the position a counter.
+// A chain's values: single row[0], row[64] (one chain, broadcast to the
+// tile); v3 row[0] (the same); maskupd row[0], row[1] (a chain a gang,
+// acc * a + b unfused); stack, scratch, cond row[l] for each column l of a
+// gang, and v4 for each column of the one chase (broadcast over the gangs).
+// The column bodies spread over blocks: a block takes one gang and
+// pp_cols(n) columns (8 at n <= 4,096, 128 blocks for stack), its chains on
+// lanes 0 .. pp_cols(n) - 1 of warp 0 (a column each, staged column-major
+// with a stride that keeps the lanes and the staging writes on distinct
+// banks). Every block walks its own gang's chase (no second launch). What
+// bounds it: each chain's dependent f32 adds, the probe's order, plus the
+// walk. The staged path needs n + PP_RUN values a chain, so n is capped at
+// PP_PATH_MAX_ROWS (the launcher refuses more; ROADMAP C47).
 //
-// The other four bodies have kernels of their own, since none of them is a
-// chase of the tile (C46):
+// The other four bodies have kernels of their own (C46):
 //   v1, v2  pp_sum_kernel: row (i * 1237) % n depends on no loaded value, so
 //           the block gathers PP_CHUNK iterations' values at once into a
 //           shared-memory ring of two chunks, a thread an iteration, while
@@ -68,6 +88,11 @@
 #define PP_STRIDE 1237
 #define PP_FULL_MASK 0xffffffffu
 #define PP_CHUNK 1024  // v1, v2: iterations a round, one a thread
+#define PP_PATH_THREADS 512       // a path body's block
+#define PP_RUN 512                // least run of the staged cycle, iterations
+#define PP_UNROLL 16              // staged values a chain loads ahead
+#define PP_WALK 128               // steps of the walk between two checks
+#define PP_PATH_MAX_ROWS 16384    // the most rows a path body takes
 
 // Gang rows pp_smem_kernel sums (1: the 128 columns once, stored to all 8
 // rows; 8: each gang its own), and gangs (warps) a block of pp_full_kernel.
@@ -78,41 +103,192 @@ static_assert(PP_GANGS % PP_SMEM_ROWS == 0 && PP_GANGS % PP_FULL_WARPS == 0, "wh
 enum { P_SINGLE, P_STACK, P_SCRATCH, P_FULL, P_SMEM, P_COND, P_MASKUPD, P_V1, P_V2, P_V3, P_V4,
        P_COUNT };
 
-__device__ __forceinline__ int pp_next(const float* row, int mask) {
-  return ((int)__ldg(row + 5)) & mask;
+// The path bodies' shapes: chains on a gang's columns (a block takes
+// pp_cols of them) or one chain a block; a chase a gang or one; two values
+// an iteration (single, maskupd) or one.
+__host__ __device__ constexpr bool pp_columns(int body) {
+  return body == P_STACK || body == P_SCRATCH || body == P_COND || body == P_V4;
+}
+__host__ __device__ constexpr bool pp_per_gang(int body) {
+  return body == P_STACK || body == P_SCRATCH || body == P_COND || body == P_MASKUPD;
+}
+__host__ __device__ constexpr bool pp_pair(int body) {
+  return body == P_SINGLE || body == P_MASKUPD;
+}
+__host__ __device__ constexpr int pp_cols(int body, int n) {
+  return !pp_columns(body) ? 1 : n <= 4096 ? 8 : n <= 8192 ? 4 : 2;
+}
+// A chain's stride in the staged array, in values: n + PP_RUN, and with
+// several chains rounded up to 32 words plus 32 / cols, so that the chains'
+// reads of one iteration and a warp's staging writes fall on distinct banks.
+__host__ __device__ constexpr int pp_stride(int cols, int n) {
+  return cols == 1 ? n + PP_RUN : (n + PP_RUN + 31) / 32 * 32 + 32 / cols;
+}
+// Dynamic shared bytes: the path (n + PP_WALK ints: the walk's last batch
+// may run past it), then the map and the stamps (n ints each) for the walk,
+// reused for the staged values after it.
+static size_t pp_path_bytes(int body, int n) {
+  const int cols = pp_cols(body, n);
+  const size_t staged = (size_t)cols * pp_stride(cols, n) * (pp_pair(body) ? 8 : 4);
+  const size_t map = (size_t)n * 8;
+  return (size_t)(n + PP_WALK) * 4 + (staged > map ? staged : map);
 }
 
-template <int BODY>
-__global__ void __launch_bounds__(PP_BLOCK)
-pp_gang_kernel(const float* __restrict__ tab, const float* __restrict__ tab2,
-               const int* __restrict__ seed, int n, int iters, float* __restrict__ out) {
-  const int tid = threadIdx.x, g = tid >> 7, l = tid & 127;
-  const int mask = n - 1;
-  float acc;
+// A staged value: row[col], or the pair (row[a], row[b]).
+template <bool PAIR>
+struct PPVal {
+  using T = float;
+  static __device__ __forceinline__ float load(const float* row, int col, int, int) {
+    return __ldg(row + col);
+  }
+};
+template <>
+struct PPVal<true> {
+  using T = float2;
+  static __device__ __forceinline__ float2 load(const float* row, int, int a, int b) {
+    return make_float2(__ldg(row + a), __ldg(row + b));
+  }
+};
 
-  if (BODY == P_SINGLE || BODY == P_V3 || BODY == P_V4) {
-    acc = 0.0f;
-    int v = seed[0];
-    for (int i = 0; i < iters; ++i) {
-      const float* row = tab + (size_t)v * PP_LANES;
-      acc = acc + __ldg(row + (BODY == P_V4 ? l : 0));
-      if (BODY == P_SINGLE) acc = acc + __ldg(row + 64);
-      v = pp_next(row, mask);
+// One iteration of a chain, in the plain version's f32 order.
+template <int BODY>
+__device__ __forceinline__ float pp_step(float acc, float x) {
+  return acc + x;
+}
+template <int BODY>
+__device__ __forceinline__ float pp_step(float acc, float2 x) {
+  if (BODY == P_MASKUPD) return __fadd_rn(__fmul_rn(acc, x.x), x.y);
+  return (acc + x.x) + x.y;
+}
+
+// acc through the staged values s[0 .. count) in order, the next PP_UNROLL
+// loaded before the current PP_UNROLL are added.
+template <int BODY, typename T>
+__device__ __forceinline__ float pp_run(float acc, const T* s, int count) {
+  int q = 0;
+  if (count >= PP_UNROLL) {
+    T a[PP_UNROLL];
+#pragma unroll
+    for (int u = 0; u < PP_UNROLL; ++u) a[u] = s[u];
+#pragma unroll 1
+    for (q = PP_UNROLL; q + PP_UNROLL <= count; q += PP_UNROLL) {
+      T b[PP_UNROLL];
+#pragma unroll
+      for (int u = 0; u < PP_UNROLL; ++u) b[u] = s[q + u];
+#pragma unroll
+      for (int u = 0; u < PP_UNROLL; ++u) acc = pp_step<BODY>(acc, a[u]);
+#pragma unroll
+      for (int u = 0; u < PP_UNROLL; ++u) a[u] = b[u];
     }
-  } else {  // a chase a gang: stack, scratch, cond, maskupd
-    acc = BODY == P_MASKUPD ? 1.0f : 0.0f;
-    int v = seed[g * PP_LANES];
-    for (int i = 0; i < iters; ++i) {
-      const float* row = (BODY == P_COND && !(v & 1) ? tab2 : tab) + (size_t)v * PP_LANES;
-      if (BODY == P_MASKUPD) {
-        acc = acc * __ldg(row) + __ldg(row + 1);
-      } else {
-        acc = acc + __ldg(row + l);
+#pragma unroll
+    for (int u = 0; u < PP_UNROLL; ++u) acc = pp_step<BODY>(acc, a[u]);
+  }
+  for (; q < count; ++q) acc = pp_step<BODY>(acc, s[q]);
+  return acc;
+}
+
+// Block (x, y) takes columns x * cols .. x * cols + cols - 1 of gang y
+// (column bodies; one gang's whole row for maskupd; the tile for single and
+// v3).
+template <int BODY>
+__global__ void __launch_bounds__(PP_PATH_THREADS)
+pp_path_kernel(const float* __restrict__ tab, const float* __restrict__ tab2,
+               const int* __restrict__ seed, int n, int iters, float* __restrict__ out) {
+  using V = PPVal<pp_pair(BODY)>;
+  using T = typename V::T;
+  extern __shared__ __align__(16) unsigned char pp_smem[];
+  __shared__ int s_len, s_mu, s_lam;
+  __shared__ float s_acc;
+  int* path = reinterpret_cast<int*>(pp_smem);
+  int* nxt = reinterpret_cast<int*>(pp_smem + (size_t)(n + PP_WALK) * 4);
+  int* first = nxt + n;
+  T* staged = reinterpret_cast<T*>(nxt);
+  const int tid = threadIdx.x, mask = n - 1;
+  const int cols = pp_cols(BODY, n), stride = pp_stride(cols, n);
+  const int lc = cols == 8 ? 3 : cols == 4 ? 2 : cols == 2 ? 1 : 0;
+  const int g = pp_per_gang(BODY) ? blockIdx.y : 0, col0 = blockIdx.x * cols;
+
+  // 1. The map, every row unstamped.
+#pragma unroll 4
+  for (int r = tid; r < n; r += PP_PATH_THREADS) {
+    const float* t = BODY == P_COND && !(r & 1) ? tab2 : tab;
+    nxt[r] = ((int)__ldg(t + (size_t)r * PP_LANES + 5)) & mask;
+    first[r] = INT32_MAX;
+  }
+  __syncthreads();
+  // 2. The walk, on warp 0: lane 0 runs PP_WALK steps of the chase through
+  // the map (path[k] = the row iteration k reads; a chain of shared loads
+  // and nothing else), then the warp stamps each row of the batch with the
+  // first step that reached it and finds the batch's first step whose row
+  // was stamped earlier: len = mu + lam, mu = that row's stamp. The walk
+  // may run up to PP_WALK - 1 steps past len; they are never read. The
+  // seed's low bits are torch's row for any seed in [-n, n).
+  if (tid < 32) {
+    int v = seed[g * PP_LANES] & mask, k0 = 0, len = -1;
+    while (len < 0 && k0 < iters) {
+      const int cnt = min(PP_WALK, iters - k0);
+      if (tid == 0) {
+#pragma unroll 8
+        for (int q = 0; q < cnt; ++q) {
+          path[k0 + q] = v;
+          v = nxt[v];
+        }
       }
-      v = pp_next(row, mask);
+      __syncwarp();
+      for (int q = tid; q < cnt; q += 32) atomicMin(first + path[k0 + q], k0 + q);
+      __syncwarp();
+      int rep = INT32_MAX;
+      for (int q = tid; q < cnt; q += 32)
+        if (first[path[k0 + q]] < k0 + q) rep = min(rep, k0 + q);
+      rep = __reduce_min_sync(PP_FULL_MASK, rep);
+      if (rep != INT32_MAX) len = rep;
+      k0 += cnt;
+    }
+    if (tid == 0) {
+      s_len = len < 0 ? k0 : len;
+      s_mu = len < 0 ? 0 : first[path[len]];
+      s_lam = len < 0 ? 0 : len - first[path[len]];
     }
   }
-  out[tid] = acc;
+  __syncthreads();
+  // 3. Stage the path's values over the map: entry j is path row j, and
+  // past the path the cycle's rows again, up to mu + lp (lp: lam, or the
+  // least multiple of lam >= PP_RUN); iteration i >= mu + lp reads entry
+  // mu + (i - mu) % lp.
+  const int len = s_len, mu = s_mu, lam = s_lam;
+  const int lp = lam == 0 ? 0 : lam >= PP_RUN ? lam : (PP_RUN + lam - 1) / lam * lam;
+  const int staged_len = lam == 0 ? len : min(iters, mu + lp);
+  const int pair_b = BODY == P_SINGLE ? 64 : 1;
+#pragma unroll 4
+  for (int e = tid; e < (staged_len << lc); e += PP_PATH_THREADS) {
+    const int j = e >> lc, c = e & (cols - 1);
+    const int row = path[j < len ? j : mu + (j - mu) % lam];
+    const float* t = (BODY == P_COND && !(row & 1) ? tab2 : tab) + (size_t)row * PP_LANES;
+    staged[(size_t)c * stride + j] = V::load(t, col0 + c, 0, pair_b);
+  }
+  __syncthreads();
+  // 4. The chains: the staged run once, then its cycle run after run.
+  if (tid < cols) {
+    const T* s = staged + (size_t)tid * stride;
+    float acc = pp_run<BODY>(BODY == P_MASKUPD ? 1.0f : 0.0f, s, staged_len);
+    for (int left = iters - staged_len; left > 0; left -= lp)
+      acc = pp_run<BODY>(acc, s + mu, min(lp, left));
+    if (BODY == P_V4) {
+#pragma unroll
+      for (int r = 0; r < PP_GANGS; ++r) out[r * PP_LANES + col0 + tid] = acc;
+    } else if (pp_columns(BODY)) {
+      out[g * PP_LANES + col0 + tid] = acc;
+    } else {
+      s_acc = acc;
+    }
+  }
+  if (!pp_columns(BODY)) {  // one chain: broadcast to the gang (maskupd) or the tile
+    __syncthreads();
+    const float acc = s_acc;
+    const int base = BODY == P_MASKUPD ? g * PP_LANES : 0;
+    const int count = BODY == P_MASKUPD ? PP_LANES : PP_BLOCK;
+    for (int e = tid; e < count; e += PP_PATH_THREADS) out[base + e] = acc;
+  }
 }
 
 // acc + the 16 values in order.
@@ -271,16 +447,40 @@ pp_full_kernel(const float* __restrict__ tab, const int* __restrict__ seed, int 
   for (int j = 0; j < 4; ++j) out[g * PP_LANES + lane + 32 * j] = acc[j];
 }
 
-// tab, tab2 (n, 128) f32 with n a power of two; seed (8, 128) int32; out
-// (1024,) f32. Returns the cudaError_t of the launch.
+template <int BODY>
+static cudaError_t pp_path_launch(const float* tab, const float* tab2, const int* seed, int n,
+                                  int iters, float* out, cudaStream_t s) {
+  if (n > PP_PATH_MAX_ROWS) return cudaErrorInvalidValue;
+  const size_t bytes = pp_path_bytes(BODY, n);
+  cudaError_t err = cudaFuncSetAttribute(pp_path_kernel<BODY>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(pp_columns(BODY) ? PP_LANES / pp_cols(BODY, n) : 1,
+                  pp_per_gang(BODY) ? PP_GANGS : 1);
+  pp_path_kernel<BODY><<<grid, PP_PATH_THREADS, bytes, s>>>(tab, tab2, seed, n, iters, out);
+  return cudaGetLastError();
+}
+
+// A path body's report at the probes' 4,096 rows (its attribute set first).
+template <int BODY>
+static int pp_path_info(int* out) {
+  const size_t bytes = pp_path_bytes(BODY, 4096);
+  cudaError_t err = cudaFuncSetAttribute(pp_path_kernel<BODY>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  return kernel_report((const void*)pp_path_kernel<BODY>, PP_PATH_THREADS, out, bytes);
+}
+
+// tab, tab2 (n, 128) f32 with n a power of two (at most PP_PATH_MAX_ROWS for
+// the path bodies); seed (8, 128) int32; out (1024,) f32. Returns the
+// cudaError_t of the launch.
 extern "C" int pp_gang(int body, const float* tab, const float* tab2, const int* seed, int n,
                        int iters, float* out, void* stream) {
   if (n <= 0 || (n & (n - 1)) || iters < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define PP_CASE(B)                                                              \
-  case B:                                                                       \
-    pp_gang_kernel<B><<<1, PP_BLOCK, 0, s>>>(tab, tab2, seed, n, iters, out); \
-    break;
+#define PP_CASE(B) \
+  case B:          \
+    return (int)pp_path_launch<B>(tab, tab2, seed, n, iters, out, s);
   switch (body) {
     PP_CASE(P_SINGLE)
     PP_CASE(P_STACK)
@@ -317,7 +517,13 @@ extern "C" int pp_kernel_info(int body, int* out) {
     case P_V2: return kernel_report((const void*)pp_sum_kernel<P_V2>, PP_BLOCK, out);
     case P_SMEM: return kernel_report((const void*)pp_smem_kernel, PP_SMEM_ROWS * PP_LANES, out);
     case P_FULL: return kernel_report((const void*)pp_full_kernel, PP_FULL_WARPS * 32, out);
-    case P_STACK: return kernel_report((const void*)pp_gang_kernel<P_STACK>, PP_BLOCK, out);
+    case P_SINGLE: return pp_path_info<P_SINGLE>(out);
+    case P_STACK: return pp_path_info<P_STACK>(out);
+    case P_SCRATCH: return pp_path_info<P_SCRATCH>(out);
+    case P_COND: return pp_path_info<P_COND>(out);
+    case P_MASKUPD: return pp_path_info<P_MASKUPD>(out);
+    case P_V3: return pp_path_info<P_V3>(out);
+    case P_V4: return pp_path_info<P_V4>(out);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -331,6 +537,10 @@ extern "C" int pp_layout(int which) {
     case 3: return P_COUNT;
     case 4: return PP_STRIDE;
     case 5: return PP_CHUNK;
+    case 6: return PP_PATH_MAX_ROWS;
+    case 7: return PP_RUN;
+    case 8: return PP_PATH_THREADS;
+    case 9: return PP_WALK;
     default: return -1;
   }
 }

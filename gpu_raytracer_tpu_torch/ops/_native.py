@@ -277,7 +277,7 @@ def load() -> ctypes.CDLL:
               read.STRIDE, read.CHUNK)),
             ("probe_prims.cu", lib.pp_layout,
              (prims.GANGS, prims.LANES, prims.STACK, len(prims.PRIMS_BODIES), prims.STRIDE,
-              prims.CHUNK)),
+              prims.CHUNK, prims.PATH_MAX_ROWS, prims.RUN, prims.PATH_THREADS, prims.WALK)),
             ("probe_dma.cu", lib.pd_layout,
              (dma.TILE, len(dma.MECHS), len(dma.OFFSETS), len(dma.OUTS)))):
         if tuple(fn(k) for k in range(len(want))) != want:

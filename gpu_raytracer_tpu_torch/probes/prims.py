@@ -30,12 +30,17 @@ vanishes beside 0.5); `chase_table` makes column 5 a random cycle over the
 rows, and a table times SCALED makes `full` vary.
 
 On a CUDA tensor `prims` launches `csrc/probe_prims.cu` and raises if it
-cannot: `pp_gang_kernel<BODY>` (one 1024-thread block, gang g = threads
-128g .. 128g + 127) for the chases; for v1 and v2 a gather of CHUNK
-iterations' values at once, summed by one thread in iteration order; for
-smem the stacks' tops in registers and 128 threads summing the row all 8
-gangs add; for full a warp a gang, the chase an iteration ahead of the
-arithmetic (ROADMAP C46). On a CPU tensor it runs `prims_plain`: the same
+cannot. The seven chasing bodies (PATH_BODIES) run `pp_path_kernel<BODY>`:
+a block reads column 5 of every row into a next-row map in shared memory,
+walks the chase once through it until a row repeats (a tail of mu rows,
+then a cycle of lam), stages the values each iteration adds for the path's
+rows, and runs each output's chain in the plain version's f32 order over
+them (`next_map` and `walk` are its map and walk in numpy); tables of more
+than PATH_MAX_ROWS rows are refused. v1 and v2 gather CHUNK iterations'
+values at once, summed by one thread in iteration order; smem keeps the
+stacks' tops in registers, 128 threads summing the row all 8 gangs add;
+full runs a warp a gang, the chase an iteration ahead of the arithmetic
+(ROADMAP C46, C47). On a CPU tensor it runs `prims_plain`: the same
 arithmetic in the same f32 order, the gangs a batch dimension, the
 iterations a Python loop, float-to-int as the kernel's truncating cast
 (`gang.trunc_i32`).
@@ -57,6 +62,13 @@ PRIMS_BODIES = ("single", "stack", "scratch", "full", "smem", "cond", "maskupd",
 STACK = 64           # k_smem: (8, 64) int32, slot 63 the scrap
 STRIDE = 1237
 CHUNK = 1024         # v1, v2: iterations gathered at once (probe_prims.cu PP_CHUNK)
+# The chasing bodies' kernel (pp_path_kernel): the most table rows it takes,
+# the least run of its staged cycle, its block's threads, the steps of its
+# walk between two checks for a repeated row.
+PATH_MAX_ROWS = 16384
+RUN = 512
+PATH_THREADS = 512
+WALK = 128
 FULL_SCALE = 1e-9
 # `full` on its own table returns 0.5 everywhere; on the table times
 # SCALED its output varies by gang and stays finite over the probe's 100,000
@@ -80,8 +92,10 @@ OPS_PER_ITER = {"single": 2, "stack": 1024, "scratch": 1024, "full": 20 * 1024,
                 "smem": 1024 + 8 * 4, "cond": 1024, "maskupd": 2 * 1024, "v1": 2, "v2": 1,
                 "v3": 1, "v4": 128}
 
-# The bodies with kernels of their own (the others run pp_gang_kernel).
-OWN_KERNELS = ("full", "smem", "v1", "v2")
+# The chasing bodies, which run pp_path_kernel; every body has a kernel of its
+# own (kernel_info reports each).
+PATH_BODIES = ("single", "stack", "scratch", "cond", "maskupd", "v3", "v4")
+OWN_KERNELS = PRIMS_BODIES
 
 launches = {"pp_gang": 0}
 plain_calls = {"pp_gang": 0}
@@ -168,6 +182,9 @@ def prims_kernel(body: str, table: torch.Tensor, table2: torch.Tensor, seed: tor
                  iters: int) -> torch.Tensor:
     """Launch `pp_gang<body>` on CUDA tensors (raises otherwise)."""
     _check(body, table, table2, seed)
+    if body in PATH_BODIES and table.shape[0] > PATH_MAX_ROWS:
+        raise ValueError(f"pp_gang<{body}> takes at most {PATH_MAX_ROWS} table rows, "
+                         f"got {table.shape[0]}")
     if table.device.type != "cuda":
         raise RuntimeError("prims_kernel needs CUDA tensors")
     lib = _native.load()
@@ -182,12 +199,12 @@ def prims_kernel(body: str, table: torch.Tensor, table2: torch.Tensor, seed: tor
 
 def kernel_info(body: str = "stack") -> dict:
     """What the compiler and the occupancy API report for the kernel that
-    runs `body` (INFO; single, scratch, cond, maskupd, v3 and v4 share
-    stack's `pp_gang_kernel`)."""
+    runs `body` (INFO; the chasing bodies' at the probes' N rows, with the
+    dynamic shared memory it takes there)."""
     import ctypes
 
-    if body not in ("stack", *OWN_KERNELS):
-        raise ValueError(f"body {body!r} has no report; ask for 'stack' or one of {OWN_KERNELS}")
+    if body not in PRIMS_BODIES:
+        raise ValueError(f"body {body!r} not in {PRIMS_BODIES}")
     lib = _native.load()
     out = (ctypes.c_int * len(INFO))()
     _native.check(lib.pp_kernel_info(PRIMS_BODIES.index(body), out),
@@ -222,18 +239,62 @@ def chase_table(rng, n: int = N):
     return table
 
 
-def probe_inputs(rng, n: int = N) -> dict:
-    """The probes' inputs from seeded numpy, as numpy: the tables uniform in
-    [0, 1), the seed uniform over the rows; two chase tables (column 5 a
-    random cycle over the rows), the second `cond`'s other table; and the
-    first table times SCALED (where `full` varies)."""
+def random_map_table(rng, n: int = N):
+    """A table uniform in [0, 1) whose column 5 is uniform over its n rows
+    (a random map: a chase runs a tail into a short cycle), as float32
+    (numpy)."""
     import numpy as np
 
     table = rng.random((n, LANES), dtype=np.float32)
-    return {"table": table, "table2": rng.random((n, LANES), dtype=np.float32),
-            "seed": rng.integers(0, n, SHAPE).astype(np.int32),
-            "chase": chase_table(rng, n), "chase2": chase_table(rng, n),
-            "scaled": table * np.float32(SCALED)}
+    table[:, 5] = rng.integers(0, n, n)
+    return table
+
+
+def probe_inputs(rng, n: int = N) -> dict:
+    """The probes' inputs from seeded numpy, as numpy: the tables uniform in
+    [0, 1), the seed uniform over the rows; two chase tables (column 5 a
+    random cycle over the rows), the second `cond`'s other table; the first
+    table times SCALED (where `full` varies); and two random-map tables."""
+    import numpy as np
+
+    table = rng.random((n, LANES), dtype=np.float32)
+    out = {"table": table, "table2": rng.random((n, LANES), dtype=np.float32),
+           "seed": rng.integers(0, n, SHAPE).astype(np.int32),
+           "chase": chase_table(rng, n), "chase2": chase_table(rng, n),
+           "scaled": table * np.float32(SCALED)}
+    out["rmap"], out["rmap2"] = random_map_table(rng, n), random_map_table(rng, n)
+    return out
+
+
+def next_map(body: str, table, table2):
+    """pp_path_kernel's next-row map (numpy): nxt[r] = int(row_r[5]) & (n -
+    1), row r from `table`, or for `cond` from `table2` where r is even."""
+    col = table[:, 5].copy()
+    if body == "cond":
+        col[::2] = table2[::2, 5]
+    return trunc_i32(torch.as_tensor(col)).long().numpy() & (table.shape[0] - 1)
+
+
+def walk(nxt, seed: int, iters: int) -> tuple:
+    """pp_path_kernel's walk (numpy): (path, mu, lam). path[k] is the row
+    iteration k reads, for k < len(path); the walk stops at the first row
+    reached again (mu the step that first reached it, lam = len(path) - mu)
+    or after `iters` steps (mu = lam = 0). The kernel walks WALK steps at a
+    time and finds the first repeat between batches, to the same result.
+    The seed's low bits name its row, as torch indexing does for any seed
+    in [-n, n)."""
+    import numpy as np
+
+    n = len(nxt)
+    stamp = np.full(n, -1, np.int64)
+    v, path = int(seed) & (n - 1), []
+    while len(path) < iters:
+        if stamp[v] >= 0:
+            return np.array(path, np.int64), int(stamp[v]), len(path) - int(stamp[v])
+        stamp[v] = len(path)
+        path.append(v)
+        v = int(nxt[v])
+    return np.array(path, np.int64), 0, 0
 
 
 def runs(iters: int = ITERS, iters2=ITERS2) -> list:
@@ -249,8 +310,9 @@ def needed(body: str, rows_read: int, iters: int) -> tuple:
 
 
 def rows_read(body: str, table, table2, seed, iters: int) -> int:
-    """Distinct rows a body reads in `iters` iterations: a host walk of
-    each chase (numpy tables)."""
+    """Distinct rows a body reads in `iters` iterations: the kernel's walk of
+    each chase (numpy tables; `cond`'s row v comes from one table, fixed by
+    v's parity)."""
     import numpy as np
 
     n = table.shape[0]
@@ -270,15 +332,8 @@ def rows_read(body: str, table, table2, seed, iters: int) -> int:
             seen.add(sum(v) & (n - 1))
         return len(seen)
     starts = seed[:1, 0] if body in ("single", "v3", "v4") else seed[:, 0]
-    seen = set()
-    for v in (int(s) for s in starts):
-        for _ in range(min(iters, 2 * n)):
-            src = 1 if body == "cond" and not v & 1 else 0
-            if (src, v) in seen:
-                break
-            seen.add((src, v))
-            v = int(np.float32((table2 if src else table)[v, 5])) & (n - 1)
-    return len(seen)
+    nxt = next_map(body, table, table2)
+    return len(set().union(*(walk(nxt, s, iters)[0].tolist() for s in starts)))
 
 
 def smem_rows(seeds, iters: int, n: int) -> list:
@@ -312,25 +367,31 @@ def library_call(body: str, table: torch.Tensor, seed: torch.Tensor, iters: int)
 
 
 def probe_prims(device, iters: int = ITERS, iters2=ITERS2, n: int = N, seed: int = 0,
-                parity_iters: int = 256, timer=None) -> list:
+                timer=None) -> list:
     """Every body at the probes' iteration counts, on the probes' own tables
-    and on the chase tables, and `full` on the scaled table. On the card each
-    body against its plain version at `parity_iters` iterations (the bodies
-    of OWN_KERNELS at 2 * CHUNK + 3: past two chunks and past the stacks'
-    filling at 62) (bit-equal), then the kernel timed with `timer` at the
-    probe's count, ns an iteration as the JAX tools print it, and for v1, v2
-    and smem `library_call` timed beside it (`library_ms`); on the CPU the
-    plain version at `iters`, no times."""
+    and on the chase tables, and `full` on the scaled table; on the card the
+    chasing bodies also on the random-map tables. On the card each body
+    against its plain version (bit-equal) at 2n + 3 iterations for the
+    chasing bodies (past the walk's longest path and two of its wraps) and
+    2 * CHUNK + 3 for the others (past two of v1's and v2's chunks and past
+    smem's stacks filling at 62), then the kernel timed with `timer` at the
+    probe's count, ns an iteration as the JAX tools print it, and for v1,
+    v2 and smem `library_call` timed beside it (`library_ms`); on the CPU
+    the plain version at `iters`, no times."""
     import numpy as np
 
     inp = probe_inputs(np.random.default_rng(seed), n)
     sd = torch.as_tensor(inp["seed"], device=device)
+    on_card = torch.device(device).type == "cuda"
     out = []
     for kind, first, second in (("own", "table", "table2"), ("chase", "chase", "chase2"),
-                                ("scaled", "scaled", "table2")):
+                                ("scaled", "scaled", "table2"), ("rmap", "rmap", "rmap2")):
+        if kind == "rmap" and not on_card:
+            continue
         t, t2 = (torch.as_tensor(inp[k], device=device) for k in (first, second))
         for body, it in runs(iters, iters2):
-            if kind.startswith("scaled") and body != "full":
+            if (kind == "scaled" and body != "full") or (kind == "rmap"
+                                                         and body not in PATH_BODIES):
                 continue
             res = prims(body, t, t2, sd, it)
             row = {"kernel": "pp_gang", "body": body, "probe": SITES[body], "table": kind,
@@ -338,7 +399,7 @@ def probe_prims(device, iters: int = ITERS, iters2=ITERS2, n: int = N, seed: int
                    "plain_ms": None, "library_ms": None,
                    "distinct": int(torch.unique(res).numel())}
             if t.device.type == "cuda":
-                pi = min(it, 2 * CHUNK + 3 if body in OWN_KERNELS else parity_iters)
+                pi = min(it, 2 * n + 3 if body in PATH_BODIES else 2 * CHUNK + 3)
                 k = prims_kernel(body, t, t2, sd, pi)
                 ref, row["plain_ms"] = plain_on_card(lambda: prims_plain(body, t, t2, sd, pi))
                 if not torch.equal(k, ref):

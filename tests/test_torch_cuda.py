@@ -1094,6 +1094,45 @@ def test_probe_prims_redesigned_bodies_at_edges(body):
             assert torch.equal(got, prims.prims_plain(body, t, t2, inp["seed"], it)), it
 
 
+@pytest.mark.parametrize("body", ["single", "stack", "scratch", "cond", "maskupd", "v3", "v4"])
+def test_probe_prims_path_bodies_match_plain(body):
+    """The chasing bodies' kernel (the walk through the next-row map, the
+    staged path, the ordered sums) at 4,096 rows on the own, chase and
+    random-map tables: bit-equal at 0, 1, mu + lam - 1, mu + lam, mu + lam +
+    1 (of gang 0's chase) and 2n + 3 iterations, each call one launch; its
+    report at PATH_THREADS threads, one block an SM at least; a random-map
+    table of PATH_MAX_ROWS rows bit-equal at 3,000 iterations, and one of
+    twice as many rows refused."""
+    _needs_card()
+    import numpy as np
+
+    from gpu_raytracer_tpu_torch.probes import prims
+
+    raw = prims.probe_inputs(np.random.default_rng(8))
+    inp = {k: torch.as_tensor(v, device="cuda") for k, v in raw.items()}
+    info = prims.kernel_info(body)
+    assert info["threads"] == prims.PATH_THREADS and info["blocks_per_sm"] >= 1
+    n = prims.N
+    for a, b in (("table", "table2"), ("chase", "chase2"), ("rmap", "rmap2")):
+        _, mu, lam = prims.walk(prims.next_map(body, raw[a], raw[b]), raw["seed"][0, 0], n + 1)
+        for it in sorted({0, 1, mu + lam - 1, mu + lam, mu + lam + 1, 2 * n + 3}):
+            before = prims.launches["pp_gang"]
+            got = prims.prims(body, inp[a], inp[b], inp["seed"], it)
+            assert prims.launches["pp_gang"] == before + 1
+            assert torch.equal(got, prims.prims_plain(body, inp[a], inp[b], inp["seed"], it)), \
+                (a, it)
+    rng = np.random.default_rng(9)
+    cap = [torch.as_tensor(prims.random_map_table(rng, prims.PATH_MAX_ROWS), device="cuda")
+           for _ in range(2)]
+    seed = torch.as_tensor(rng.integers(0, prims.PATH_MAX_ROWS, prims.SHAPE).astype(np.int32),
+                           device="cuda")
+    assert torch.equal(prims.prims(body, *cap, seed, 3000),
+                       prims.prims_plain(body, *cap, seed, 3000))
+    big = torch.cat(cap)
+    with pytest.raises(ValueError):
+        prims.prims(body, big, big, seed, 1)
+
+
 @pytest.mark.parametrize("mech", ["cp_async", "bulk"])
 @pytest.mark.parametrize("count", ["1", "K", "K+1", "64"])
 def test_probe_dma_ring_matches_plain(mech, count):

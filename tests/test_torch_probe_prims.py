@@ -311,3 +311,170 @@ def test_library_call_reads_the_same_values(inputs, body):
         pops = _smem_pops_ahead(inputs["seed"][:, 0], iters, N)
         assert prims.smem_rows(inputs["seed"][:, 0], iters, N) == [sum(p) % N for p in pops]
     assert prims.library_call("stack", t, sd, iters) is None
+
+
+# ---------------------------------------------------------------------------
+# The chasing bodies' kernel (pp_path_kernel): its walk (prims.next_map,
+# prims.walk), its staged path and its ordered sums, mirrored in numpy
+# ---------------------------------------------------------------------------
+
+
+
+
+def _staged_rows(path, mu: int, lam: int, iters: int) -> tuple:
+    """(rows, lp): the rows whose values pp_path_kernel stages, in order (the
+    path, then its cycle again up to mu + lp, at most `iters`), and lp, the
+    least multiple of lam that is >= RUN (0 where the walk found no cycle)."""
+    if lam == 0:
+        return path, 0
+    lp = lam if lam >= prims.RUN else -(-prims.RUN // lam) * lam
+    j = np.arange(min(iters, mu + lp))
+    return path[np.where(j < len(path), j, mu + (j - mu) % lam)], lp
+
+
+def _iteration_entries(staged: int, mu: int, lp: int, iters: int):
+    """The staged entry each iteration reads: the `staged` entries once, then
+    entries mu .. mu + lp - 1 run after run (the kernel's counter)."""
+    runs, left = [np.arange(min(staged, iters))], iters - staged
+    while left > 0:
+        runs.append(mu + np.arange(min(lp, left)))
+        left -= lp
+    return np.concatenate(runs)
+
+
+_TABLES = {}
+
+
+def _path_inputs(n: int) -> dict:
+    """probe_inputs at n rows (n may be under the wrapper's 128: the schedule
+    is numpy), made once a size."""
+    if n not in _TABLES:
+        _TABLES[n] = prims.probe_inputs(np.random.default_rng(100 + n), n)
+    return _TABLES[n]
+
+
+_KINDS = {"own": ("stack", "table", "table2"), "chase": ("stack", "chase", "chase2"),
+          "rmap": ("stack", "rmap", "rmap2"), "cond": ("cond", "rmap", "rmap2")}
+
+
+def _direct_rows(body, table, table2, seed: int, iters: int) -> list:
+    """The rows a chase reads, iteration by iteration, straight from the
+    tables: next = int(row[5]) & (n - 1), `cond`'s row v from `table2`
+    where v is even (column 5 holds small whole numbers or [0, 1) here)."""
+    n, v, out = table.shape[0], int(seed) & (table.shape[0] - 1), []
+    for _ in range(iters):
+        out.append(v)
+        src = table2 if body == "cond" and not v & 1 else table
+        v = int(src[v, 5]) & (n - 1)
+    return out
+
+
+@pytest.mark.parametrize("n", [8, 256, 4096])
+@pytest.mark.parametrize("kind", list(_KINDS))
+@pytest.mark.parametrize("count", ["0", "1", "mu", "mu+lam-1", "mu+lam", "3(mu+lam)+1"])
+def test_path_schedule_matches_the_direct_chase(n, kind, count):
+    """The kernel's schedule (the next-row map, the walk with stamps until a
+    row repeats, mu and lam, the staged path with its cycle repeated to at
+    least RUN iterations, and the staged entry of iteration i by a counter)
+    reads the rows the direct chase reads, on the own table (mu <= 1, lam =
+    1), the chase table (mu = 0, lam = n), a random map (a tail and a short
+    cycle) and `cond`'s two-table map, at 0, 1, mu, mu + lam - 1, mu + lam
+    and 3 (mu + lam) + 1 iterations."""
+    body, a, b = _KINDS[kind]
+    inp = _path_inputs(n)
+    table, table2, seed = inp[a], inp[b], int(inp["seed"][3, 0])
+    nxt = prims.next_map(body, table, table2)
+    full, mu, lam = prims.walk(nxt, seed, n + 1)
+    assert 1 <= lam and mu + lam <= n and len(full) == mu + lam
+    if kind == "own":
+        assert mu <= 1 and lam == 1
+    if kind == "chase":
+        assert mu == 0 and lam == n
+    iters = {"0": 0, "1": 1, "mu": mu, "mu+lam-1": mu + lam - 1, "mu+lam": mu + lam,
+             "3(mu+lam)+1": 3 * (mu + lam) + 1}[count]
+    path, m, lm = prims.walk(nxt, seed, iters)
+    if iters > mu + lam:
+        assert (m, lm) == (mu, lam)
+    else:
+        assert (m, lm) == (0, 0) and len(path) == iters
+    rows, lp = _staged_rows(path, m, lm, iters)
+    assert len(rows) <= n + prims.RUN
+    if lm:  # lp: the least multiple of lam that is >= RUN
+        assert lp % lm == 0 and lp >= prims.RUN and lp - lm < prims.RUN
+    got = rows[_iteration_entries(len(rows), m, lp, iters)] if iters else rows[:0]
+    assert got.tolist() == _direct_rows(body, table, table2, seed, iters)
+
+
+def _path_sums(body, table, table2, seed, iters: int) -> np.ndarray:
+    """pp_path_kernel's output in numpy: a gang's (or the one) chase walked,
+    its path's values staged, and each chain run over the staged entries in
+    the kernel's order in f32."""
+    nxt = prims.next_map(body, table, table2)
+    gangs = range(prims.GANGS) if body in ("stack", "scratch", "cond", "maskupd") else [0]
+    out = np.zeros(prims.SHAPE, np.float32)
+    for g in gangs:
+        path, mu, lam = prims.walk(nxt, seed[g, 0], iters)
+        rows, lp = _staged_rows(path, mu, lam, iters)
+        staged = table[rows].copy()
+        if body == "cond":
+            even = rows % 2 == 0
+            staged[even] = table2[rows[even]]
+        acc = np.full(prims.LANES, np.float32(1.0 if body == "maskupd" else 0.0), np.float32)
+        for j in _iteration_entries(len(rows), mu, lp, iters) if iters else []:
+            r = staged[j]
+            if body == "single":
+                acc = (acc + r[0]) + r[64]
+            elif body == "v3":
+                acc = acc + r[0]
+            elif body == "maskupd":
+                acc = acc * r[0] + r[1]
+            else:
+                acc = acc + r
+        if body in ("single", "v3", "v4"):
+            out[:] = acc
+        else:
+            out[g] = acc
+    return out
+
+
+@pytest.mark.parametrize("body", prims.PATH_BODIES)
+@pytest.mark.parametrize("kind", ["own", "chase", "rmap"])
+def test_path_sums_match_plain(body, kind):
+    """The chains over the staged path values, in the kernel's order (the
+    staged run once, then the cycle run after run), are prims_plain's bit
+    for bit for all seven chasing bodies at 2 (n + RUN) + 3 iterations on a
+    128-row table: past two wraps of every gang's staged cycle."""
+    _, a, b = _KINDS[kind]
+    inp = _path_inputs(128)
+    table, table2, seed = inp[a], inp[b], inp["seed"]
+    iters = 2 * (128 + prims.RUN) + 3
+    ref = prims.prims_plain(body, *(torch.as_tensor(x) for x in (table, table2, seed)),
+                            iters).numpy()
+    got = _path_sums(body, table, table2, seed, iters)
+    assert (ref.view(np.int32) == got.view(np.int32)).all()
+
+
+def _path_bytes(body: str, n: int) -> int:
+    """pp_path_bytes: the path (n + WALK ints), then the larger of the map
+    and the stamps (n ints each) and the staged values (cols chains of
+    pp_stride values, a pair a value for single and maskupd)."""
+    cols = 1 if body in ("single", "maskupd", "v3") else 8 if n <= 4096 else 4 if n <= 8192 else 2
+    stride = n + prims.RUN if cols == 1 else -(-(n + prims.RUN) // 32) * 32 + 32 // cols
+    staged = cols * stride * (8 if body in ("single", "maskupd") else 4)
+    return 4 * (n + prims.WALK) + max(8 * n, staged)
+
+
+def test_path_kernel_refuses_tables_past_its_cap():
+    """Every chasing body's shared memory fits the H100's 232,448 opt-in bytes
+    at every table size up to PATH_MAX_ROWS; the wrapper refuses a table of
+    more rows with a ValueError before it looks at the device (the plain
+    version takes it)."""
+    for body in prims.PATH_BODIES:
+        for n in (128, 1024, 4096, 8192, prims.PATH_MAX_ROWS):
+            assert _path_bytes(body, n) <= 232_448, (body, n)
+    big = torch.zeros((2 * prims.PATH_MAX_ROWS, prims.LANES), dtype=torch.float32)
+    seed = torch.zeros(prims.SHAPE, dtype=torch.int32)
+    for body in prims.PATH_BODIES:
+        with pytest.raises(ValueError):
+            prims.prims_kernel(body, big, big, seed, 1)
+    assert prims.prims_plain("stack", big, big, seed, 2).shape == prims.SHAPE
