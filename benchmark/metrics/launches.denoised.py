@@ -1,0 +1,10 @@
+"""launches.denoised: device kernels (copies and sets left out) a frame in the
+traced slice."""
+
+from benchmark.harness.profile import launches
+
+
+def read(ctx):
+    if ctx["mode"] != "denoised" or ctx["trace"] is None:
+        return None
+    return launches(ctx["trace"]) / ctx["trace"]["units"]
